@@ -1,0 +1,57 @@
+"""Parameter conversion between the JAX reference and the port.
+
+``params_from_jax`` takes the reference's parameter pytree with numpy
+leaves (``jax.tree.map(np.asarray, params)``) and returns the port's flat
+``dict[str, Tensor]`` in ``jax.tree.leaves`` order; ``params_to_jax`` is
+its inverse (nested dicts of numpy arrays).  bfloat16 arrays arrive as
+``ml_dtypes`` numpy arrays and cross as their raw 16-bit patterns.  Neither
+function imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _to_numpy(t: torch.Tensor):
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree, device="cpu") -> dict:
+    """Nested dict of arrays -> flat ``{dotted path: Tensor}`` (sorted keys
+    at every level, which is ``jax.tree.leaves`` order)."""
+    out = {}
+
+    def walk(node, prefix):
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[f"{prefix}{k}"] = _to_tensor(v).to(device)
+    walk(tree, "")
+    return out
+
+
+def params_to_jax(params: dict) -> dict:
+    """Flat ``{dotted path: Tensor}`` -> nested dict of numpy arrays."""
+    out: dict = {}
+    for key, t in params.items():
+        node = out
+        *heads, last = key.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = _to_numpy(t)
+    return out

@@ -1,0 +1,116 @@
+"""(f) The port imports neither ``jax`` nor ``repro``; (g) its entry points
+refuse to run without CUDA unless ``device="cpu"`` is asked for, and its
+kernel wrappers never fall back to the plain version for a CUDA tensor."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.kernels import bitpack, build, ops, qsgd, topk_mask
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import repro_torch, repro_torch.launch.train\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+        "             or m.startswith(('jax.', 'repro.', 'jaxlib')))\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20      # every module was imported
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.simulate import make_sim_step
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.synthetic import FedDataConfig, sample_round
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    model = Model(get_arch("paper_lm"))
+    fl = FLConfig(uplink_compressor="topk:0.05>>qsgd:8", backend="kernel")
+    for call in (lambda: make_sim_step(model, fl, 2),
+                 lambda: model.init(0),
+                 lambda: sample_round(FedDataConfig(256, 2, 8, 1), 0),
+                 lambda: train.main(["--rounds", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    sim = make_sim_step(model, fl, 2, device="cpu")
+    assert sim.engine.device.type == "cpu"
+
+
+def test_unported_knobs_raise_naming_the_reference_module():
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.simulate import make_sim_step
+    from repro_torch.core.types import FLConfig
+    from repro_torch.models.model import Model
+    model = Model(get_arch("paper_lm"))
+    for kw, module in ((dict(algorithm="scaffold"), "repro.core.engine"),
+                       (dict(server_opt="fedadam"), "repro.core.server_opt"),
+                       (dict(dgc_momentum=0.9), "repro.compress.pipeline"),
+                       (dict(secure_agg=True), "repro.compress.secure_agg"),
+                       (dict(scenario_dropout=0.1), "repro.core.scenario")):
+        with pytest.raises(NotImplementedError, match=module):
+            make_sim_step(model, FLConfig(uplink_compressor="qsgd:8", **kw),
+                          2, device="cpu")
+    with pytest.raises(NotImplementedError, match="repro.configs"):
+        get_arch("mamba2_370m")
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor on a machine without one: it passes the
+    wrappers' argument checks, so what follows is the kernel path."""
+
+    def __init__(self, n):
+        self.device = torch.device("cuda")
+        self.dtype = torch.float32
+        self.shape = (n,)
+
+    def dim(self):
+        return 1
+
+    def numel(self):
+        return self.shape[0]
+
+    def is_contiguous(self):
+        return True
+
+    def reshape(self, *_):
+        return self
+
+    def contiguous(self):
+        return self
+
+
+def test_kernel_wrappers_raise_on_cuda_tensor_without_a_build(monkeypatch,
+                                                              tmp_path):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_FUNCS", {})
+    x, one = _FakeCuda(3001), _FakeCuda(1)
+    before = (topk_mask.launches, qsgd.launches, bitpack.launches)
+    for call in (lambda: ops.threshold_sparsify(x, one),
+                 lambda: ops.qsgd_quantize(x, x, 8, 2048),
+                 lambda: ops.qsgd_quantize_packed(x, x, 4, 2048)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert (topk_mask.launches, qsgd.launches, bitpack.launches) == before
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.qsgd_quantize(torch.zeros(4, device="meta"),
+                          torch.zeros(4, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        qsgd.qsgd_quantize_cuda(torch.zeros(4), torch.zeros(4))

@@ -1,0 +1,91 @@
+"""``jax.random``-backed keys for the port's differential tests.
+
+``repro_torch`` threads keys with the reference's structure (split per
+round and per client, ``fold_in`` per leaf and per chain stage) but draws
+its own uniforms.  :class:`JaxKey` has the port key's three methods and
+answers them with ``jax.random``, so a port run handed a ``JaxKey`` draws
+exactly the reference's QSGD uniforms — the key path of the main path is
+
+    state.rng -> split(5)[3] -> split(C)[c] -> fold_in(leaf)
+              -> (EF passes it through) -> fold_in(1) -> uniform((nb, blk))
+
+and both packages walk it.  The tests below pin that equivalence.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro_torch.core.rng import Key
+
+
+class JaxKey:
+    """A ``jax.random`` key behind the port's key interface."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, n):
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, data):
+        return JaxKey(jax.random.fold_in(self.key, data))
+
+    def uniform(self, shape, device):
+        u = np.asarray(jax.random.uniform(self.key, tuple(shape),
+                                          jnp.float32))
+        return torch.from_numpy(u.copy()).to(device)
+
+
+IEEE_OPTIONS = {"xla_backend_optimization_level": 0,
+                "xla_disable_hlo_passes": "algsimp"}
+
+
+def ieee_jit(fn, **jit_kw):
+    """``jax.jit`` that keeps the reference's arithmetic as written, one
+    IEEE rounding per op — what op-by-op JAX computes, and what the port
+    and its CUDA kernels compute.  A default CPU jit differs by ULPs: LLVM
+    contracts a multiply feeding an add into one FMA (QSGD's
+    ``x / s * L + u``, the EF residual's ``y - q / L * s``), and XLA's
+    algebraic simplifier turns ``q / L`` into ``q * (1 / L)`` (DESIGN.md
+    §6's engine-scope class)."""
+    return jax.jit(fn, compiler_options=IEEE_OPTIONS, **jit_kw)
+
+
+def to_torch(a, device="cpu"):
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def test_jaxkey_walks_the_reference_key_path():
+    """The port's call sequence on a JaxKey draws the reference's
+    uniforms for one (round, client, leaf) of the main path."""
+    root = jax.random.PRNGKey(0)
+    ref = jax.random.split(root, 5)[3]
+    ref = jax.random.fold_in(jax.random.split(ref, 4)[2], 5)
+    ref = jax.random.fold_in(ref, 1)
+    want = np.asarray(jax.random.uniform(ref, (3, 7), jnp.float32))
+    k = JaxKey(root).split(5)[3].split(4)[2].fold_in(5).fold_in(1)
+    np.testing.assert_array_equal(k.uniform((3, 7), "cpu").numpy(), want)
+
+
+def test_ieee_jit_rounds_every_op():
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal(4096).astype(np.float32)
+    c = rng.random(4096, dtype=np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(ieee_jit(lambda a, c: a * 127 + c)(a, c)),
+        (a * np.float32(127.0)) + c)
+    np.testing.assert_array_equal(
+        np.asarray(ieee_jit(lambda a, c: a / 127 * c)(a, c)),
+        (a / np.float32(127.0)) * c)
+
+
+def test_port_key_is_deterministic_and_path_sensitive():
+    k = Key(3)
+    a = k.split(5)[3].fold_in(2).uniform((4, 5), "cpu")
+    b = Key(3).split(5)[3].fold_in(2).uniform((4, 5), "cpu")
+    c = k.split(5)[3].fold_in(1).uniform((4, 5), "cpu")
+    d = k.split(5)[2].fold_in(2).uniform((4, 5), "cpu")
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, d)
+    assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
