@@ -8,21 +8,35 @@ line is printed):
 
   1. the card (``nvidia-smi`` name and power limit) and the versions;
   2. the kernel build: every ``kernels/csrc/*.cu`` compiled in parallel;
-  3. each CUDA kernel against its plain PyTorch version, bit for bit, at
-     the shapes of the main path (the paper_lm leaves and top-k carriers,
-     odd and short ones included, and the largest llama3_2_1b leaf,
+  3. each CUDA kernel against its plain PyTorch version at the shapes of
+     the main paths (the paper_lm leaves and top-k carriers, odd, short
+     and unaligned ones included, and the largest llama3_2_1b leaf,
      ``w_up`` at 268,435,456 elements), with the kernel's, the plain
-     version's and the bound's times;
-  4. the main path: paper_lm at full width, 8 clients, 3 sim rounds of
+     version's and the bound's times.  Codes, packed bytes, scales and
+     counts are bit-equal; the ternarize kernels' per-row ``psum`` is a sum
+     in another order, held at a relative error of 1e-6;
+  4. slice 1's path: paper_lm at full width, 8 clients, 3 sim rounds of
      EF ``topk:0.05>>qsgd:8`` and ``topk:0.05>>qsgd:4@fused``, each with
      ``backend="kernel"`` and with the plain backend on the card — params,
      EF residuals and ledgers must be bit-identical between the two;
-  5. llama3_2_1b at full width (bf16), 2 clients, 2 rounds of
-     ``topk:0.05>>qsgd:4@fused`` through the kernels: finite loss and the
-     ledger equal to its static terms, with the peak memory.  The kernel
-     runs of phases 4 and 5 go under ``torch.profiler``, which prints the
-     device's busy share and device time by launching operator;
-  6. the ``kernels`` JSON line (launch counts are those of phases 4-5);
+  4b. slice 2's path: paper_lm at full width, 8 clients, on both backends,
+     of EF ``stc`` (0.01) with an ``lfl8`` downlink, EF ``stc:0.1@fused``,
+     EF ``topk:0.1>>ternary@fused`` and DGC ``topk`` (0.01, momentum 0.9).
+     First, outside the counted phases, round 1 from one state gives
+     identical codes, supports, downlinked params and ledger on both
+     backends, mu within rtol 1e-5 (DGC: identical rows); then 3
+     free-running rounds of each, whose losses are printed with their
+     largest relative gap (DGC: bit-identical runs);
+  5. llama3_2_1b at full width and depth (bf16), 2 clients, 2 rounds of
+     ``topk:0.05>>qsgd:4@fused`` through the kernels;
+  5b. the same of EF ``stc:0.1@fused`` with an ``lfl8`` downlink.  Phases 5
+     and 5b need a finite loss and the ledger equal to its static terms,
+     and print the peak memory.  The kernel runs of phases 4-5b go under
+     ``torch.profiler``, which prints the device's busy share and device
+     time by launching operator;
+  6. the ``kernels`` JSON line: launch counts are those of the main-path
+     phases (4, 4b, 5, 5b), each counted from 0 just before its phase; the
+     pack and unpack kernels are on no path and count their phase-3 calls;
   7. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -49,9 +63,44 @@ PAPER_LM_CLIENTS, PAPER_LM_SEQ, PAPER_LM_BATCH, PAPER_LM_ROUNDS = 8, 32, 2, 3
 LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS = 2, 128, 1, 2
 LLAMA_W_UP = 268_435_456
 CHAINS = ("topk:0.05>>qsgd:8", "topk:0.05>>qsgd:4@fused")
+# slice 2's path: (label, FLConfig knobs, kernels the kernel backend runs)
+STC_RUNS = (
+    ("EF stc 0.01 + lfl8", dict(uplink_compressor="stc", topk_fraction=0.01,
+                                downlink_compressor="lfl8"),
+     ("threshold_sparsify", "ternarize", "qsgd_quantize")),
+    ("EF stc:0.1@fused", dict(uplink_compressor="stc:0.1@fused"),
+     ("ternarize_pack",)),
+    ("EF topk:0.1>>ternary@fused",
+     dict(uplink_compressor="topk:0.1>>ternary@fused"),
+     ("threshold_sparsify", "ternarize_pack")),
+    ("DGC topk 0.01 m0.9", dict(uplink_compressor="topk", topk_fraction=0.01,
+                                dgc_momentum=0.9),
+     ("threshold_sparsify",)),
+)
+LLAMA_STC = dict(uplink_compressor="stc:0.1@fused", downlink_compressor="lfl8")
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
-               "qsgd_quantize_rows", "qsgd_pack_rows")
+               "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
+               "ternarize_pack_rows", "pack_codes_words",
+               "unpack_codes_words")
+# name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "threshold_sparsify": ("src/repro_torch/kernels/csrc/topk_mask.cu",
+                           "src/repro/kernels/topk_mask.py:31"),
+    "qsgd_quantize": ("src/repro_torch/kernels/csrc/qsgd.cu",
+                      "src/repro/kernels/qsgd.py:35"),
+    "qsgd_pack": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                  "src/repro/kernels/bitpack.py:108"),
+    "ternarize": ("src/repro_torch/kernels/csrc/ternary.cu",
+                  "src/repro/kernels/ternary.py:36"),
+    "ternarize_pack": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                       "src/repro/kernels/bitpack.py:69"),
+    "pack_codes": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                   "src/repro/kernels/bitpack.py:141"),
+    "unpack_codes": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                     "src/repro/kernels/bitpack.py:161"),
+}
+OFF_PATH = ("pack_codes", "unpack_codes")      # no path runs them
 
 
 def fail(msg):
@@ -99,10 +148,17 @@ def max_abs_err(a, b):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def psum_rel_err(a, b):
+    """Max relative error of a per-row f32 sum against its plain version."""
+    d = (a.double() - b.double()).abs()
+    return float((d / b.double().abs().clamp(min=1e-30)).max()) \
+        if d.numel() else 0.0
+
+
 def check_kernels(dev):
-    from repro_torch.compress.sparsification import _k, top_k_indices
+    from repro_torch.compress.sparsification import _k
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels import bitpack, qsgd, topk_mask
+    from repro_torch.kernels import build
     from repro_torch.models.model import Model
 
     g = torch.Generator(device=dev)
@@ -111,77 +167,162 @@ def check_kernels(dev):
     # the top-k carriers each leaf hands to QSGD, with the QSGD block
     # adapted to min(2048, k): short, odd and multi-row carriers
     carriers = sorted({_k(n, 0.05) for n in leaves} | {3001})
+    # the carriers the ternary stage gets from stc (0.01) and topk:0.1
+    tern_carriers = sorted({_k(n, f) for n in leaves for f in (0.01, 0.1)})
+    tern_sizes = sorted(set(leaves + tern_carriers + [100, 3001]))
     sizes = {"threshold_sparsify": leaves + [3001, LLAMA_W_UP],
              "qsgd_quantize": carriers + [_k(LLAMA_W_UP, 0.05)],
              "qsgd_pack": [k for k in carriers if min(2048, k) % 2 == 0]
-             + [_k(LLAMA_W_UP, 0.05)]}
-    print(f"paper_lm leaf sizes {leaves}; top-k carriers {carriers}")
+             + [_k(LLAMA_W_UP, 0.05)],
+             # "u" marks an unaligned view (x[1:], the scalar load path)
+             "ternarize": tern_sizes + ["u5001", LLAMA_W_UP],
+             "ternarize_pack": tern_sizes + ["u5001", LLAMA_W_UP],
+             # (rows, block): short rows with a byte-wise tail, then full ones
+             "pack_codes": [(3, 20)] + [(-(-n // 2048), 2048)
+                                        for n in leaves + [LLAMA_W_UP]],
+             "unpack_codes": [(3, 20)] + [(-(-n // 2048), 2048)
+                                          for n in leaves + [LLAMA_W_UP]]}
+    print(f"paper_lm leaf sizes {leaves}; top-k carriers {carriers}; "
+          f"ternary carriers {tern_carriers}")
+    build.LAUNCHES.clear()
     results = {}
     for name, ns in sizes.items():
-        worst = 0.0
+        worst, worst_rel = 0.0, 0.0
         for n in ns:
-            x = torch.randn(n, generator=g, device=dev) * 2.0
-            u = torch.rand(n, generator=g, device=dev)
-            blk = max(1, min(2048, n))
-            if name == "threshold_sparsify":
-                _, t = top_k_indices(x, _k(n, 0.05))
-                kern = lambda: topk_mask.threshold_sparsify_cuda(x, t)
-                plain = lambda: topk_mask.threshold_sparsify_plain(x, t)
-                nbytes = 12 * n + 4
-                ops = 3 * n
-            elif name == "qsgd_quantize":
-                kern = lambda: qsgd.qsgd_quantize_cuda(x, u, 8, blk)
-                plain = lambda: qsgd.qsgd_quantize_plain(x, u, 8, blk)
-                nb = -(-n // blk)
-                nbytes = 8 * n + nb * blk + 4 * nb
-                ops = 8 * n
-            else:
-                kern = lambda: bitpack.qsgd_pack_cuda(x, u, 4, blk)
-                plain = lambda: bitpack.qsgd_pack_plain(x, u, 4, blk)
-                nb = -(-n // blk)
-                nbytes = 8 * n + nb * blk // 2 + 4 * nb
-                ops = 10 * n
-            err = max_abs_err(kern(), plain())
-            torch.cuda.synchronize()
-            if err != 0.0:
-                fail(f"{name} n={n}: kernel differs from its plain version "
-                     f"(max abs err {err})")
-            worst = max(worst, err)
-            reps = 20 if n > 1 << 24 else 200
-            ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           ops / F32_OPS_PER_S) * 1e3
-            print(f"kernel {name:18s} n={n:>11,} bit-equal=yes "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} "
-                  f"(bytes={nbytes:,}, {100 * bound_ms / ms:.0f}% of bound)",
-                  flush=True)
-            results[name] = dict(n=n, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms,
-                                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= ops / F32_OPS_PER_S else "operations",
-                                 max_abs_err=worst)
-            del x, u
+            for variant in (2, 4) if name in OFF_PATH else (None,):
+                row = check_one(name, n, variant, g, dev)
+                worst = max(worst, row["max_abs_err"])
+                worst_rel = max(worst_rel, row.get("psum_rel_err", 0.0))
+                if variant in (None, 2):
+                    results[name] = dict(row, max_abs_err=worst)
+                    if "psum_rel_err" in row:
+                        results[name]["psum_rel_err"] = worst_rel
+        results[name]["calls"] = build.LAUNCHES[name]
     return results
+
+
+def check_one(name, n, bits, g, dev):
+    """One kernel at one shape against its plain version; fails on a
+    mismatch.  Returns the timings and errors."""
+    from repro_torch.compress.sparsification import _k, top_k_indices
+    from repro_torch.kernels import bitpack, ops, qsgd, ternary, topk_mask
+
+    psum_rel = None
+    label = n
+    if name in ("pack_codes", "unpack_codes"):
+        rows, block = n
+        half = 1 << (bits - 1)
+        codes = torch.randint(-half, half, (rows, block), generator=g,
+                              device=dev, dtype=torch.int8)
+        numel = rows * block
+        if name == "pack_codes":
+            kern = lambda: (bitpack.pack_codes_cuda(codes, bits),)
+            plain = lambda: (bitpack.pack_codes_plain(codes, bits),)
+        else:
+            packed = bitpack.pack_codes_plain(codes, bits)
+            kern = lambda: (bitpack.unpack_codes_cuda(packed, bits),)
+            plain = lambda: (bitpack.unpack_codes_plain(packed, bits),)
+        nbytes = numel + numel * bits // 8
+        n_ops = 3 * numel
+        label = f"{rows}x{block} bits={bits}"
+    else:
+        unaligned = isinstance(n, str)
+        if unaligned:
+            n = int(n[1:])
+            x = (torch.randn(n + 1, generator=g, device=dev) * 2.0)[1:]
+            label = f"{n} (unaligned)"
+        else:
+            x = torch.randn(n, generator=g, device=dev) * 2.0
+        u = torch.rand(n, generator=g, device=dev)
+        blk = max(1, min(2048, n))
+        nb = -(-n // blk)
+        if name == "threshold_sparsify":
+            _, t = top_k_indices(x, _k(n, 0.05))
+            kern = lambda: topk_mask.threshold_sparsify_cuda(x, t)
+            plain = lambda: topk_mask.threshold_sparsify_plain(x, t)
+            nbytes = 12 * n + 4
+            n_ops = 3 * n
+        elif name == "qsgd_quantize":
+            kern = lambda: qsgd.qsgd_quantize_cuda(x, u, 8, blk)
+            plain = lambda: qsgd.qsgd_quantize_plain(x, u, 8, blk)
+            nbytes = 8 * n + nb * blk + 4 * nb
+            n_ops = 8 * n
+        elif name == "qsgd_pack":
+            kern = lambda: bitpack.qsgd_pack_cuda(x, u, 4, blk)
+            plain = lambda: bitpack.qsgd_pack_plain(x, u, 4, blk)
+            nbytes = 8 * n + nb * blk // 2 + 4 * nb
+            n_ops = 10 * n
+        else:
+            # the ternary stages' pass at threshold 0 on a carrier, and the
+            # fused STC's at the top-k (0.1) threshold on a leaf; both
+            # thresholds are checked, the top-k one is timed
+            nb = -(-n // 2048)
+            fn_k = ternary.ternarize_cuda if name == "ternarize" else \
+                bitpack.ternarize_pack_cuda
+            fn_p = ternary.ternarize_plain if name == "ternarize" else \
+                bitpack.ternarize_pack_plain
+            for t in (torch.zeros(1, device=dev), ops._stc_threshold(x, 0.1)):
+                kern = lambda t=t: fn_k(x, t)
+                plain = lambda t=t: fn_p(x, t)
+                ko, po = kern(), plain()
+                torch.cuda.synchronize()
+                for i in (0, 2):          # codes or packed bytes, pcnt
+                    if not torch.equal(ko[i], po[i]):
+                        fail(f"{name} n={label} t={float(t)}: output {i} "
+                             f"differs from the plain version")
+                rel = psum_rel_err(ko[1], po[1])
+                if rel > 1e-6:
+                    fail(f"{name} n={label}: psum relative error {rel}")
+                psum_rel = max(psum_rel or 0.0, rel)
+            code_bytes = nb * 2048 if name == "ternarize" else nb * 512
+            nbytes = 4 * n + code_bytes + 8 * nb + 4
+            n_ops = 4 * n
+    err = max_abs_err(kern(), plain())
+    torch.cuda.synchronize()
+    if psum_rel is None and err != 0.0:
+        fail(f"{name} n={label}: kernel differs from its plain version "
+             f"(max abs err {err})")
+    numel = n if isinstance(n, int) else n[0] * n[1]
+    reps = 20 if numel > 1 << 24 else 200
+    ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+    exact = "bit-equal=yes" if psum_rel is None else \
+        f"codes,pcnt bit-equal=yes psum_rel_err={psum_rel:.2e}"
+    print(f"kernel {name:18s} n={label!s:>20} {exact} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} "
+          f"(bytes={nbytes:,}, {100 * bound_ms / ms:.0f}% of bound)",
+          flush=True)
+    row = dict(n=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+               >= n_ops / F32_OPS_PER_S else "operations", max_abs_err=err)
+    if psum_rel is not None:
+        row["psum_rel_err"] = psum_rel
+    return row
 
 
 # ---------------------------------------------------------------------------
 # phases 4-5: the main path
 # ---------------------------------------------------------------------------
 
-def run_sim(model, spec, backend, clients, seq, batch, rounds, dev,
+def fed_data(model, clients, seq, batch):
+    from repro_torch.data.synthetic import FedDataConfig
+    return FedDataConfig(vocab_size=model.cfg.vocab_size,
+                         num_clients=clients, seq_len=seq,
+                         batch_per_client=batch, heterogeneity=1.5)
+
+
+def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
             local_steps, local_lr):
     from repro_torch.core.engine import run_rounds
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
-    from repro_torch.data.synthetic import FedDataConfig, sample_round
+    from repro_torch.data.synthetic import sample_round
 
-    fl = FLConfig(uplink_compressor=spec, backend=backend,
-                  local_steps=local_steps, local_lr=local_lr)
+    fl = FLConfig(backend=backend, local_steps=local_steps,
+                  local_lr=local_lr, **fl_kw)
     sim = make_sim_step(model, fl, clients, chunk=seq, device=dev)
-    data = FedDataConfig(vocab_size=model.cfg.vocab_size, num_clients=clients,
-                         seq_len=seq, batch_per_client=batch,
-                         heterogeneity=1.5)
+    data = fed_data(model, clients, seq, batch)
     state = sim.init_fn(0)
     state, ms = run_rounds(sim.engine, state,
                            lambda r: sample_round(data, r, dev), rounds)
@@ -216,9 +357,8 @@ def check_ledger(sim, ms, clients, what):
 
 
 def launch_counts():
-    from repro_torch.kernels import bitpack, qsgd, topk_mask
-    return {"threshold_sparsify": topk_mask.launches,
-            "qsgd_quantize": qsgd.launches, "qsgd_pack": bitpack.launches}
+    from repro_torch.kernels import build
+    return {name: build.LAUNCHES[name] for name in KERNELS}
 
 
 def paper_lm_phase(dev):
@@ -245,17 +385,15 @@ def paper_lm_phase(dev):
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                sim, state, ms = run_sim(model, spec, backend,
+                sim, state, ms = run_sim(model, dict(uplink_compressor=spec),
+                                         backend,
                                          PAPER_LM_CLIENTS, PAPER_LM_SEQ,
                                          PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
                                          2, 0.2)
             secs = time.perf_counter() - t0
             ran = {k: v - before[k] for k, v in launch_counts().items()}
-            for name, count in ran.items():
-                if (count > 0) != (backend == "kernel" and
-                                   name in expect[spec]):
-                    fail(f"paper_lm {spec} backend={backend}: {name} "
-                         f"launched {count} times")
+            check_launches(ran, expect[spec] if backend == "kernel" else (),
+                           f"paper_lm {spec} backend={backend}")
             losses = [float(v) for v in ms["loss"]]
             if not all(v == v and abs(v) < 1e6 for v in losses):
                 fail(f"paper_lm {spec} {backend}: loss not finite {losses}")
@@ -284,45 +422,179 @@ def paper_lm_phase(dev):
               flush=True)
 
 
-def llama_phase(dev):
+def llama_phase(dev, fl_kw, expect, what):
+    """llama3_2_1b at full width and depth through the kernels: finite
+    loss and params, the ledger equal to its static terms, and the kernels
+    of ``expect`` launched."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
 
     cfg = get_arch("llama3_2_1b")
     model = Model(cfg)
-    spec = CHAINS[1]
-    print(f"llama3_2_1b: {model.param_count():,} params, {cfg.num_layers} "
-          f"layers (no depth cut), d_model {cfg.d_model}, "
+    print(f"llama3_2_1b ({what}): {model.param_count():,} params, "
+          f"{cfg.num_layers} layers (no depth cut), d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}; {LLAMA_CLIENTS} clients, seq "
           f"{LLAMA_SEQ}, batch {LLAMA_BATCH}, {LLAMA_ROUNDS} rounds of "
-          f"{spec} backend=kernel", flush=True)
+          f"{fl_kw} backend=kernel", flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        sim, state, ms = run_sim(model, spec, "kernel", LLAMA_CLIENTS,
+        sim, state, ms = run_sim(model, fl_kw, "kernel", LLAMA_CLIENTS,
                                  LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS, dev, 1,
                                  0.05)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
-    if not (ran["threshold_sparsify"] and ran["qsgd_pack"]):
-        fail(f"llama3_2_1b: the fused chain did not run its kernels {ran}")
+    check_launches(ran, expect, f"llama3_2_1b {what}")
     losses = [float(v) for v in ms["loss"]]
     if not all(v == v and abs(v) < 1e6 for v in losses):
-        fail(f"llama3_2_1b: loss not finite {losses}")
-    check_ledger(sim, ms, LLAMA_CLIENTS, "llama3_2_1b")
+        fail(f"llama3_2_1b {what}: loss not finite {losses}")
+    check_ledger(sim, ms, LLAMA_CLIENTS, f"llama3_2_1b {what}")
     for t in _tensors(state.params):
         if not bool(torch.isfinite(t).all()):
-            fail("llama3_2_1b: non-finite parameters")
+            fail(f"llama3_2_1b {what}: non-finite parameters")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"llama3_2_1b: loss per round {[round(v, 6) for v in losses]} "
-          f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round, ledger == "
-          f"static terms, launches {ran}, peak memory {peak:.1f} GiB, "
-          f"{secs:.2f}s under the profiler", flush=True)
-    print_profile(prof, secs, "llama3_2_1b")
+    print(f"llama3_2_1b {what}: loss per round "
+          f"{[round(v, 6) for v in losses]} "
+          f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
+          f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round, "
+          f"ledger == static terms, launches {ran}, peak memory {peak:.1f} "
+          f"GiB, {secs:.2f}s under the profiler", flush=True)
+    print_profile(prof, secs, f"llama3_2_1b {what}")
+    del sim, state, ms
+    torch.cuda.empty_cache()
+
+
+def check_launches(ran, expect, what):
+    """The kernels of ``expect`` launched, and no other."""
+    for name, count in ran.items():
+        if (count > 0) != (name in expect):
+            fail(f"{what}: {name} launched {count} times (expected "
+                 f"{'some' if name in expect else 'none'})")
+
+
+def first_round(model, fl_kw, backend, dev):
+    """Round 1 of the sim program's hops from one fixed state: the
+    downlinked params, the client losses and each client's decoded rows
+    (whose signs are the codes and support, and whose magnitudes are mu
+    on the ternary wires), and the static ledger terms."""
+    from repro_torch.core import engine as ET
+    from repro_torch.core.rng import PRNGKey
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.synthetic import sample_round
+
+    fl = FLConfig(backend=backend, local_steps=2, local_lr=0.2, **fl_kw)
+    terms, up, down = ET.ledger_terms(model, fl)
+    disp = ET.make_dispatch(model, fl, up, down, PAPER_LM_CLIENTS,
+                            PAPER_LM_SEQ)
+    params = model.init(0, dev)
+    batch = sample_round(fed_data(model, PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                                  PAPER_LM_BATCH), 0, dev)
+    _, r_down, _, r_up, _ = PRNGKey(fl.seed).split(5)
+    p_down = disp.downlink(params, r_down)
+    deltas, losses, _ = disp.local_update(p_down,
+                                          ET.Dispatch.model_batch(batch))
+    rows, _ = disp.wire_rows(deltas, ET.comm_state_init(
+        up, params, PAPER_LM_CLIENTS, dev) if up.stateful else None, r_up)
+    torch.cuda.synchronize()
+    return terms, p_down, losses, rows
+
+
+def stc_first_rounds(dev):
+    """Slice 2's path on paper_lm, round 1 from one state on both backends
+    for each of ``STC_RUNS``: identical downlinked params, losses, codes,
+    supports and ledger terms, mu within rtol 1e-5 (DGC: identical rows).
+    A comparison of the backends, so it runs outside the counted phases."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    for label, fl_kw, _ in STC_RUNS:
+        exact = "dgc_momentum" in fl_kw     # no mu: every output exact
+        (tk, pk, lk, rk), (tp, pp, lp, rp) = (
+            first_round(model, fl_kw, b, dev) for b in ("kernel", "jax"))
+        if tk != tp:
+            fail(f"{label}: ledger terms differ {tk} != {tp}")
+        for (name, a), b in zip(pk.items(), pp.values()):
+            if not torch.equal(a, b):
+                fail(f"{label}: downlinked {name} differs between backends")
+        if not torch.equal(lk, lp):
+            fail(f"{label}: round-1 losses differ {lk} != {lp}")
+        mu_rel = 0.0
+        for (name, a), b in zip(rk.items(), rp.values()):
+            if not torch.equal(torch.sign(a), torch.sign(b)):
+                fail(f"{label}: round-1 codes or support of {name} differ")
+            if exact and not torch.equal(a, b):
+                fail(f"{label}: round-1 rows of {name} differ")
+            nz = b != 0
+            if bool(nz.any()):
+                mu_rel = max(mu_rel, float(((a[nz] - b[nz]).abs()
+                                            / b[nz].abs()).max()))
+        if mu_rel > 1e-5:
+            fail(f"{label}: round-1 mu relative error {mu_rel}")
+        print(f"paper_lm {label}: round 1 from one state — codes, supports, "
+              f"downlinked params, losses and ledger identical on both "
+              f"backends; decoded |rows| (mu) max rel err {mu_rel:.2e}",
+              flush=True)
+
+
+def stc_phase(dev):
+    """Slice 2's path on paper_lm: 3 free-running rounds on both backends
+    for each of ``STC_RUNS``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    print(f"paper_lm STC path: {PAPER_LM_CLIENTS} clients, seq "
+          f"{PAPER_LM_SEQ}, batch {PAPER_LM_BATCH}, {PAPER_LM_ROUNDS} rounds, "
+          f"E=2 lr=0.2", flush=True)
+    for label, fl_kw, expect in STC_RUNS:
+        exact = "dgc_momentum" in fl_kw
+        runs = {}
+        for backend in ("kernel", "jax"):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                sim, state, ms = run_sim(model, fl_kw, backend,
+                                         PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                                         PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
+                                         2, 0.2)
+            secs = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, expect if backend == "kernel" else (),
+                           f"paper_lm {label} backend={backend}")
+            losses = [float(v) for v in ms["loss"]]
+            if not all(v == v and abs(v) < 1e6 for v in losses):
+                fail(f"paper_lm {label} {backend}: loss not finite {losses}")
+            check_ledger(sim, ms, PAPER_LM_CLIENTS, f"paper_lm {label}")
+            print(f"paper_lm {label} backend={backend}: loss per round "
+                  f"{[round(v, 6) for v in losses]} "
+                  f"up={float(ms['ledger'].uplink_wire[0]):,.0f} "
+                  f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round "
+                  f"launches {ran} ({secs:.2f}s under the profiler)",
+                  flush=True)
+            if backend == "kernel":
+                print_profile(prof, secs, f"paper_lm {label}", top=6)
+            runs[backend] = (state, ms)
+        (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
+        gap = float(((mk["loss"] - mp["loss"]).abs() / mp["loss"].abs())
+                    .max())
+        if exact:
+            for a, b in (list(zip(_tensors(sk.params), _tensors(sp.params)))
+                         + list(zip(_tensors(sk.comm_state),
+                                    _tensors(sp.comm_state)))):
+                if not torch.equal(a, b):
+                    fail(f"paper_lm {label}: kernel backend differs from "
+                         f"the plain backend")
+        print(f"paper_lm {label}: free-running loss, kernel vs plain, "
+              f"largest relative gap {gap:.3e}"
+              + (" (params and DGC state bit-identical)" if exact else ""),
+              flush=True)
 
 
 def print_profile(prof, wall_s, what, top=10):
@@ -353,6 +625,26 @@ def print_profile(prof, wall_s, what, top=10):
               f"{e.key[:90]} (port kernel)")
 
 
+def kernel_rows(kern, launches):
+    """The ``kernels`` JSON rows: phase 3's measurements, the main paths'
+    launch counts (the off-path kernels count their phase-3 calls)."""
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        k = kern[name]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": k["calls"] if name in OFF_PATH else launches[name],
+               "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "library_ms": None, "n": k["n"]}
+        if "psum_rel_err" in k:
+            row["psum_rel_err"] = k["psum_rel_err"]
+        if name in OFF_PATH:
+            row["launches_from"] = "phase 3 (no path runs this kernel)"
+        rows.append(row)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -363,7 +655,7 @@ def main():
               f"from a checkout of the repository", file=sys.stderr)
         return 3
     sys.path.insert(0, SRC)
-    from repro_torch.kernels import bitpack, build, qsgd, topk_mask
+    from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -385,37 +677,28 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     kern = check_kernels(dev)
+    stc_first_rounds(dev)
 
-    # the main path's launch counts: every counter at 0 just before it,
-    # read just after (the comparisons above do not count)
-    for mod in (topk_mask, qsgd, bitpack):
-        mod.launches = 0
-    paper_lm_phase(dev)
-    llama_phase(dev)
-    launches = launch_counts()
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was never launched on the main path")
+    # the main paths' launch counts: every counter at 0 just before each
+    # path's phase, read just after (the comparisons above do not count)
+    launches = {name: 0 for name in KERNELS}
+    for phase in (paper_lm_phase, stc_phase,
+                  lambda d: llama_phase(d, dict(uplink_compressor=CHAINS[1]),
+                                        ("threshold_sparsify", "qsgd_pack"),
+                                        CHAINS[1]),
+                  lambda d: llama_phase(d, LLAMA_STC,
+                                        ("ternarize_pack", "qsgd_quantize"),
+                                        "EF stc:0.1@fused + lfl8")):
+        build.LAUNCHES.clear()
+        phase(dev)
+        for name, count in launch_counts().items():
+            launches[name] += count
+    for name in KERNELS:
+        if name not in OFF_PATH and launches[name] <= 0:
+            fail(f"kernel {name} was never launched on a main path")
     print(f"main-path launches {launches}", flush=True)
 
-    meta = {
-        "threshold_sparsify": ("src/repro_torch/kernels/csrc/topk_mask.cu",
-                               "src/repro/kernels/topk_mask.py:31"),
-        "qsgd_quantize": ("src/repro_torch/kernels/csrc/qsgd.cu",
-                          "src/repro/kernels/qsgd.py:35"),
-        "qsgd_pack": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                      "src/repro/kernels/bitpack.py:108"),
-    }
-    rows = []
-    for name, (source, replaces) in meta.items():
-        k = kern[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": None,
-                     "n": k["n"]})
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(kern, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -89,6 +89,17 @@ class CommTransform:
     def dp_rho_per_round(self) -> float:
         return 0.0
 
+    # stateless conveniences (the downlink hop's roundtrip)
+    def compress(self, rng, x):
+        payload, _ = self.encode(self.init(x.shape, device=x.device), rng, x)
+        return payload
+
+    def decompress(self, payload, n: int):
+        return self.decode(payload, n)
+
+    def roundtrip(self, rng, x):
+        return self.decode(self.compress(rng, x), x.shape[0])
+
 
 class Identity(CommTransform):
     """No compression — the FedAvg baseline (f32 on the wire)."""
@@ -119,8 +130,6 @@ _STAGES: Dict[str, Callable[..., CommTransform]] = {}
 
 # stage names the JAX reference registers that the port has not ported
 _NOT_PORTED = {
-    "ternary": "repro.compress.sparsification",
-    "stc": "repro.compress.sparsification",
     "sbc": "repro.compress.sparsification",
     "randmask": "repro.compress.sparsification",
     "sketch": "repro.compress.sketch",

@@ -3,19 +3,21 @@
 ``chain(a, b, ...)`` composes stages along each stage's *carrier*: stage
 i's ``payload[carrier_key]`` is re-encoded by stage i+1, and stage i gets
 the key ``rng.fold_in(i)``.  ``ErrorFeedback`` wraps a pipeline with the
-EF-SGD residual.  ``MomentumCorrection`` (DGC) is not ported yet.
+EF-SGD residual, ``MomentumCorrection`` with DGC's momentum correction and
+its warm-up sparsity schedule.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.compress.api import CommTransform, Identity, zeros_state
-from repro_torch.device import not_ported
+from repro_torch.device import resolve_device
 
 __all__ = ["Chain", "chain", "ErrorFeedback", "error_feedback",
-           "momentum_correction"]
+           "MomentumCorrection", "momentum_correction"]
 
 
 class Chain(CommTransform):
@@ -153,10 +155,81 @@ class ErrorFeedback(_Wrapper):
         return payload, {"residual": res, "inner": ist}
 
 
+class MomentumCorrection(_Wrapper):
+    """DGC (Lin et al. 2018) momentum correction + gradient accumulation:
+    u <- m·u + x; v <- v + u; transmit encode(v); the unsent part of v
+    stays local and the momentum of *sent* coordinates is cleared.
+
+    Warm-up (DGC §3.3): with ``warmup_rounds = W`` and ``final_fraction =
+    f``, round r transmits the top ``f^((r+1)/(W+1))`` fraction.  The inner
+    pipeline is sized for the widest (first) round and later rounds mask v
+    down to the annealed support before encoding, so the wire payload and
+    ``wire_bits`` stay constant while the effective sparsity anneals."""
+
+    def __init__(self, inner: CommTransform, momentum: float = 0.9,
+                 warmup_rounds: int = 0, final_fraction: float = 0.0):
+        super().__init__(inner)
+        self.momentum = momentum
+        self.warmup_rounds = int(warmup_rounds)
+        self.final_fraction = final_fraction
+        self.name = f"mc{momentum:g}({inner.name})"
+        if self.warmup_rounds:
+            if not 0.0 < final_fraction <= 1.0:
+                raise ValueError("the warm-up schedule needs the target "
+                                 f"(final) fraction in (0, 1], got "
+                                 f"{final_fraction}")
+            self.name += f"@warmup{self.warmup_rounds}"
+
+    def init(self, shape, device=None):
+        st = {"u": zeros_state(shape, device),
+              "v": zeros_state(shape, device),
+              "inner": self.inner.init(shape, device)}
+        if self.warmup_rounds:
+            st["round"] = torch.zeros(
+                (), dtype=torch.int32,
+                device=resolve_device() if device is None else device)
+        return st
+
+    def _anneal_mask(self, v, rounds):
+        """Zero all but the top-k_eff coordinates of v, where the effective
+        fraction f_r = final^((r+1)/(W+1)) anneals down to final.  f_r is
+        computed in f32 on the device as in the reference, and its order
+        statistic read from the descending prefix of the schedule's static
+        widest k (the round-0 fraction): ``ops._stc_threshold``'s
+        construction."""
+        from repro_torch.kernels.ops import _stc_threshold
+        w1 = self.warmup_rounds + 1
+        expo = torch.clamp(rounds + 1, max=w1).to(torch.float32) / \
+            torch.tensor(float(w1), dtype=torch.float32, device=v.device)
+        log_f = torch.log(torch.tensor(self.final_fraction,
+                                       dtype=torch.float32, device=v.device))
+        thr = _stc_threshold(v, torch.exp(expo * log_f),
+                             max_fraction=self.final_fraction ** (1.0 / w1))
+        return torch.where(v.abs() >= thr, v, torch.zeros_like(v))
+
+    def encode(self, state, rng, x):
+        m = torch.tensor(self.momentum, dtype=torch.float32, device=x.device)
+        u = m * state["u"].reshape(x.shape) + x
+        v = state["v"].reshape(x.shape) + u
+        v_enc = self._anneal_mask(v, state["round"]) if self.warmup_rounds \
+            else v
+        payload, ist = self.inner.encode(state["inner"], rng, v_enc)
+        v_hat = self.inner.decode(payload, v.shape[0])
+        sent = v_hat != 0.0
+        new_state = {"u": torch.where(sent, torch.zeros_like(u), u)
+                     .reshape(state["u"].shape),
+                     "v": (v - v_hat).reshape(state["v"].shape),
+                     "inner": ist}
+        if self.warmup_rounds:
+            new_state["round"] = state["round"] + 1
+        return payload, new_state
+
+
 def error_feedback(inner: CommTransform, decay: float = 1.0) -> CommTransform:
     return ErrorFeedback(inner, decay)
 
 
-def momentum_correction(inner, momentum=0.9, warmup_rounds=0,
-                        final_fraction=0.0):
-    raise not_ported("momentum_correction (DGC)", "repro.compress.pipeline")
+def momentum_correction(inner: CommTransform, momentum: float = 0.9,
+                        warmup_rounds: int = 0,
+                        final_fraction: float = 0.0) -> CommTransform:
+    return MomentumCorrection(inner, momentum, warmup_rounds, final_fraction)

@@ -1,10 +1,16 @@
 """Packed wire formats (port of ``repro.compress.wire_format``, DESIGN.md §10).
 
-``pack4`` packs 4-bit two's-complement codes (range [-8, 7]) two per byte,
-``byte = c0 | c1<<4``, length ``ceil(n/2)``, the tail byte's unused field
-zero.  It packs the FLAT code vector, so the row-wise fused pack kernel
-(``kernels/bitpack``) emits the same bytes for any even block.  The 2-bit
-``pack2`` / ``unpack2`` of the ternary stages are not ported yet.
+Byte layouts, little-endian within the byte:
+
+  * ``pack2`` — 2-bit two's-complement codes, 4 per byte,
+    ``byte = c0 | c1<<2 | c2<<4 | c3<<6``; code -1 -> 0b11, 0 -> 0b00,
+    +1 -> 0b01.  Length ``ceil(n/4)``, the tail byte's unused fields zero.
+  * ``pack4`` — 4-bit two's-complement codes (range [-8, 7]), 2 per byte,
+    ``byte = c0 | c1<<4``.  Length ``ceil(n/2)``.
+
+Both pack the FLAT code vector, so the row-wise fused pack kernels
+(``kernels/bitpack``) emit the same bytes for any block divisible by the
+codes per byte.
 """
 from __future__ import annotations
 
@@ -20,16 +26,40 @@ def packed_len(n: int, bits: int) -> int:
     return -(-n // per)
 
 
+def _pack(codes, bits):
+    per = 8 // bits
+    n = codes.shape[0]
+    u = (F.pad(codes.to(torch.int16), (0, (-n) % per))
+         & ((1 << bits) - 1)).to(torch.uint8).reshape(-1, per)
+    out = u[:, 0]
+    for j in range(1, per):
+        out = out | (u[:, j] << (j * bits))
+    return out
+
+
+def _unpack(packed, n, bits):
+    per = 8 // bits
+    mask, off = (1 << bits) - 1, 1 << (bits - 1)
+    shifts = torch.arange(0, 8, bits, dtype=torch.int16, device=packed.device)
+    u = (packed.to(torch.int16)[:, None] >> shifts) & mask
+    return (((u + off) & mask) - off).reshape(-1)[:n].to(torch.int8)
+
+
+def pack2(codes):
+    """int8 ternary codes (n,) in {-1, 0, +1} -> uint8 (ceil(n/4),)."""
+    return _pack(codes, 2)
+
+
+def unpack2(packed, n: int):
+    """uint8 (ceil(n/4),) -> int8 codes (n,) (2-bit sign extension)."""
+    return _unpack(packed, n, 2)
+
+
 def pack4(codes):
     """int8 codes (n,) in [-8, 7] -> uint8 (ceil(n/2),), low nibble first."""
-    n = codes.shape[0]
-    u = (F.pad(codes.to(torch.int16), (0, n % 2)) & 15).to(torch.uint8)
-    u = u.reshape(-1, 2)
-    return u[:, 0] | (u[:, 1] << 4)
+    return _pack(codes, 4)
 
 
 def unpack4(packed, n: int):
     """uint8 (ceil(n/2),) -> int8 codes (n,) (4-bit sign extension)."""
-    shifts = torch.tensor([0, 4], dtype=torch.int16, device=packed.device)
-    u = (packed.to(torch.int16)[:, None] >> shifts) & 15
-    return (((u + 8) & 15) - 8).reshape(-1)[:n].to(torch.int8)
+    return _unpack(packed, n, 4)

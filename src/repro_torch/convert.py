@@ -4,8 +4,12 @@
 leaves (``jax.tree.map(np.asarray, params)``) and returns the port's flat
 ``dict[str, Tensor]`` in ``jax.tree.leaves`` order; ``params_to_jax`` is
 its inverse (nested dicts of numpy arrays).  bfloat16 arrays arrive as
-``ml_dtypes`` numpy arrays and cross as their raw 16-bit patterns.  Neither
-function imports JAX.
+``ml_dtypes`` numpy arrays and cross as their raw 16-bit patterns.
+
+``state_from_jax`` carries pipeline state (EF residuals, DGC momentum and
+accumulators, the warm-up round counter) across: it fills the port's state
+structure with the reference's arrays, given in ``jax.tree.leaves`` order
+(tuples in order, dict keys sorted).  No function here imports JAX.
 """
 from __future__ import annotations
 
@@ -54,4 +58,30 @@ def params_to_jax(params: dict) -> dict:
         for h in heads:
             node = node.setdefault(h, {})
         node[last] = _to_numpy(t)
+    return out
+
+
+def state_from_jax(template, leaves, device="cpu"):
+    """The port's state ``template`` (e.g. ``engine.comm_state_init``'s)
+    with each tensor replaced by the next array of ``leaves``, walked in
+    ``jax.tree.leaves`` order.  Shapes and dtypes must agree."""
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, torch.Tensor):
+            t = _to_tensor(next(it)).to(device)
+            if t.shape != node.shape or t.dtype != node.dtype:
+                raise ValueError(f"state leaf {tuple(t.shape)} {t.dtype} "
+                                 f"does not fit {tuple(node.shape)} "
+                                 f"{node.dtype}")
+            return t
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple):
+            return tuple(fill(v) for v in node)
+        return node
+
+    out = fill(template)
+    if next(it, None) is not None:
+        raise ValueError("more state leaves than the template holds")
     return out

@@ -3,24 +3,25 @@
 One FL round is a :class:`RoundProgram`, an ordered sequence of hops over a
 plain dict context, as in the reference:
 
-    rng -> local_update -> select -> wire -> server_opt -> ledger -> finalize
+    rng -> downlink -> local_update -> select -> wire -> server_opt
+        -> ledger -> finalize
 
-built on the shared dispatch body (:func:`make_dispatch`:
-``local_update``, ``wire_rows``, ``aggregate_rows``; the reference's
-downlink hop is the identity in this slice and has no hop here).  The reference's
+built on the shared dispatch body (:func:`make_dispatch`: ``downlink``,
+``local_update``, ``wire_rows``, ``aggregate_rows``).  The reference's
 ``vmap`` over clients is a Python loop over the client dim here, and its
 ``lax.scan`` over rounds is the Python loop of :func:`run_rounds`.
 
 Random keys follow the reference's structure exactly: ``state.rng``
-splits 5 ways per round, the uplink key splits per client, each client's
-key is folded with the leaf index, and the chain folds in its stage index
-— so a test that injects ``jax.random``-backed keys gets the reference's
-QSGD uniforms.
+splits 5 ways per round (local, downlink, selection, uplink, next), the
+uplink key splits per client, each client's key is folded with the leaf
+index, and the chain folds in its stage index; the downlink roundtrips
+every leaf with the same downlink key — so a test that injects
+``jax.random``-backed keys gets the reference's QSGD uniforms.
 
-Only the ``sim`` topology with fedavg / fedsgd / fedprox, an identity
-downlink, ``selection="all"`` and the ``fedavg`` server step is ported;
-every other knob raises ``NotImplementedError`` naming the reference module
-that has it.
+Only the ``sim`` topology with fedavg / fedsgd / fedprox, EF or DGC
+uplinks, a downlink compressor roundtripped per leaf (e.g. ``lfl8``),
+``selection="all"`` and the ``fedavg`` server step is ported; every other knob raises
+``NotImplementedError`` naming the reference module that has it.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.compress.api import make_compressor
-from repro_torch.compress.pipeline import error_feedback
+from repro_torch.compress.pipeline import error_feedback, momentum_correction
 from repro_torch.core import selection as sel
 from repro_torch.core import server_opt
 from repro_torch.core.rng import PRNGKey
@@ -88,13 +89,8 @@ def check_fl(fl: FLConfig) -> None:
     """Reject the reference's knobs this slice does not run."""
     if fl.algorithm not in _ALGORITHMS:
         raise not_ported(f"algorithm={fl.algorithm!r}", "repro.core.engine")
-    if fl.downlink_compressor not in ("none", "", None):
-        raise not_ported(f"downlink_compressor={fl.downlink_compressor!r}",
-                         "repro.core.engine (make_dispatch.downlink)")
     if fl.cmfl_threshold > 0:
         raise not_ported("CMFL (cmfl_threshold > 0)", "repro.core.engine")
-    if fl.dgc_momentum > 0 or fl.dgc_warmup_rounds > 0:
-        raise not_ported("DGC momentum correction", "repro.compress.pipeline")
     if fl.secure_agg or fl.dp_sigma > 0 or fl.dp_clip > 0:
         raise not_ported("secure aggregation / DP noise",
                          "repro.compress.secure_agg")
@@ -105,15 +101,42 @@ def check_fl(fl: FLConfig) -> None:
         raise not_ported("scenario client dynamics", "repro.core.scenario")
 
 
+def _make_uplink(fl: FLConfig, fraction: float):
+    return make_compressor(fl.uplink_compressor, fraction=fraction,
+                           block=fl.qsgd_block, rows=fl.sketch_rows,
+                           cols=fl.sketch_cols, backend=fl.backend,
+                           wire_format=fl.wire_format)
+
+
 def uplink_pipeline(fl: FLConfig):
-    """The uplink CommPipeline from config: the spec plus error feedback
-    for biased pipelines."""
+    """The uplink CommPipeline from config: the spec plus the stateful
+    correction wrapper — DGC momentum correction if ``dgc_momentum`` is set
+    (with the warm-up sparsity schedule when ``dgc_warmup_rounds`` > 0),
+    else error feedback for biased pipelines."""
     check_fl(fl)
-    up = make_compressor(fl.uplink_compressor, fraction=fl.topk_fraction,
-                         block=fl.qsgd_block, rows=fl.sketch_rows,
-                         cols=fl.sketch_cols, backend=fl.backend,
-                         wire_format=fl.wire_format)
-    if up.biased and fl.error_feedback:
+    if fl.dgc_warmup_rounds > 0 and fl.dgc_momentum <= 0.0:
+        raise ValueError("dgc_warmup_rounds is a DGC knob — it needs "
+                         "dgc_momentum > 0 to take effect")
+    frac = fl.topk_fraction
+    warmup = fl.dgc_warmup_rounds if fl.dgc_momentum > 0.0 else 0
+    if warmup > 0:
+        # the wire is sized for the first (widest) round's fraction
+        # f_target^(1/(W+1)); later rounds mask down inside it
+        frac = fl.topk_fraction ** (1.0 / (warmup + 1.0))
+    up = _make_uplink(fl, frac)
+    if warmup > 0 and not up.is_identity:
+        # an explicit per-stage fraction ("topk:0.01>>...") overrides the
+        # fraction kwarg and would make the warm-up a silent no-op
+        at_target = _make_uplink(fl, fl.topk_fraction)
+        if up.wire_bits(1 << 16) == at_target.wire_bits(1 << 16):
+            raise ValueError(
+                "dgc_warmup_rounds needs a fraction-kwarg-driven uplink "
+                f"spec (e.g. 'topk' + topk_fraction); "
+                f"{fl.uplink_compressor!r} ignores the warm-up widening")
+    if fl.dgc_momentum > 0.0 and not up.is_identity:
+        up = momentum_correction(up, fl.dgc_momentum, warmup_rounds=warmup,
+                                 final_fraction=fl.topk_fraction)
+    elif up.biased and fl.error_feedback:
         up = error_feedback(up)
     return up
 
@@ -220,11 +243,13 @@ def _stack_states(states):
 
 @dataclasses.dataclass(eq=False)
 class Dispatch:
-    """One dispatch generation: ``local_update(params, model_batch) ->
+    """One dispatch generation: ``downlink(params, k_down) -> params`` (the
+    LFL-quantized broadcast), ``local_update(params, model_batch) ->
     (deltas, losses, first_losses)``, ``wire_rows(deltas, comm_state,
     k_up) -> (decoded rows, new comm_state)`` and ``aggregate_rows(rows,
     w_num, wsum)``.  Deltas and rows are ``{leaf name: (C, *leaf shape)}``
     in leaf order."""
+    downlink: Callable
     local_update: Callable
     wire_rows: Callable
     aggregate_rows: Callable
@@ -239,9 +264,14 @@ class Dispatch:
 def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
                   chunk: int) -> Dispatch:
     stateful = up.stateful
-    if not down.is_identity:
-        raise not_ported("a compressed downlink",
-                         "repro.core.engine (make_dispatch.downlink)")
+
+    def downlink(params, k_down):
+        # every leaf roundtrips with the same key, as the reference's
+        # jax.tree.map over the params does
+        if down.is_identity:
+            return params
+        return {n: down.roundtrip(k_down, p.reshape(-1).to(torch.float32))
+                .reshape(p.shape).to(p.dtype) for n, p in params.items()}
 
     def local_update(params, model_batch):
         ddt = torch.bfloat16 if fl.delta_dtype == "bf16" else torch.float32
@@ -282,8 +312,8 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
         return {n: ((w_num[:, None] * leaf.reshape(C, -1)).sum(0) / wsum)
                 .reshape(leaf.shape[1:]) for n, leaf in rows.items()}
 
-    return Dispatch(local_update=local_update, wire_rows=wire_rows,
-                    aggregate_rows=aggregate_rows)
+    return Dispatch(downlink=downlink, local_update=local_update,
+                    wire_rows=wire_rows, aggregate_rows=aggregate_rows)
 
 
 def comm_state_init(pipe, params: dict, C: int, device):
@@ -310,14 +340,20 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
 
     def hop_rng(ctx):
         # the reference's split: (local, downlink, selection, uplink, next);
-        # this slice draws only from the uplink key
-        _, _, _, r_up, r_next = ctx["state"].rng.split(5)
-        ctx.update(r_up=r_up, r_next=r_next)
+        # this slice draws from the downlink and uplink keys
+        _, r_down, _, r_up, r_next = ctx["state"].rng.split(5)
+        ctx.update(r_down=r_down, r_up=r_up, r_next=r_next)
+        return ctx
+
+    def hop_downlink(ctx):
+        # clients train from the (LFL-quantized) broadcast model; the server
+        # step applies the aggregate to the unquantized params
+        ctx["params"] = dispatch.downlink(ctx["state"].params, ctx["r_down"])
         return ctx
 
     def hop_local_update(ctx):
         deltas, losses, first_losses = dispatch.local_update(
-            ctx["state"].params, Dispatch.model_batch(ctx["batch"]))
+            ctx.pop("params"), Dispatch.model_batch(ctx["batch"]))
         ctx.update(deltas=deltas, losses=losses, first_losses=first_losses)
         return ctx
 
@@ -370,7 +406,8 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
             round=st.round + 1, prev_delta=None)
         return ctx
 
-    hops = (("rng", hop_rng), ("local_update", hop_local_update),
+    hops = (("rng", hop_rng), ("downlink", hop_downlink),
+            ("local_update", hop_local_update),
             ("select", hop_select), ("wire", hop_wire),
             ("server_opt", hop_server_opt), ("ledger", hop_ledger),
             ("finalize", hop_finalize))

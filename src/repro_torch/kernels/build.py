@@ -9,10 +9,12 @@ of the sources and flags; all missing libraries compile in parallel, one
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false -prec-div=true`` so
 that the QSGD arithmetic is never contracted into FMAs or approximated —
-the kernels must be bit-exact with the reference.
+the kernels must be bit-exact with the reference.  ``LAUNCHES`` counts the
+launches of every kernel by name.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -23,10 +25,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("topk_mask", "qsgd", "bitpack")
+SOURCES = ("topk_mask", "qsgd", "ternary", "bitpack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-Xptxas=-v")
+
+# CUDA launches by kernel name: each wrapper adds one where it launches its
+# kernel, and nowhere else
+LAUNCHES: collections.Counter = collections.Counter()
 
 # ptxas reports (registers, shared memory, spills) of the last build, by name
 LOG: dict = {}

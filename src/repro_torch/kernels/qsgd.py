@@ -19,8 +19,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import blocked, ref_qsgd_quantize_blocked
 
-launches = 0        # CUDA launches through qsgd_quantize_cuda
-
 # one CUDA block per row keeps the row's reduction in shared memory
 MAX_BLOCK = 1 << 16
 
@@ -34,7 +32,6 @@ def qsgd_quantize_plain(x, u, bits=8, block=2048):
 
 def qsgd_quantize_cuda(x, u, bits=8, block=2048):
     """The CUDA kernel; same interface as :func:`qsgd_quantize_plain`."""
-    global launches
     n = check_row_inputs(x, u, block)
     fn = build.function("qsgd", "repro_qsgd_quantize",
                         [ctypes.c_void_p] * 4
@@ -47,7 +44,7 @@ def qsgd_quantize_cuda(x, u, bits=8, block=2048):
         err = fn(x.data_ptr(), u.data_ptr(), q.data_ptr(), scale.data_ptr(),
                  n, block, 2 ** (bits - 1) - 1,
                  torch.cuda.current_stream(x.device).cuda_stream)
-    launches += 1
+    build.LAUNCHES["qsgd_quantize"] += 1
     build.check(err, "qsgd_quantize")
     return q, scale
 

@@ -18,9 +18,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_threshold_sparsify_blocked
 
-launches = 0        # CUDA launches through threshold_sparsify_cuda
-
-
 def threshold_sparsify_plain(x, thresh):
     """Flat f32 (n,) + threshold -> (kept, resid) flat (n,)."""
     kept, resid = ref_threshold_sparsify_blocked(x.reshape(1, -1), thresh)
@@ -30,12 +27,8 @@ def threshold_sparsify_plain(x, thresh):
 def threshold_sparsify_cuda(x, thresh):
     """The CUDA kernel on a contiguous f32 CUDA vector; ``thresh`` is a
     one-element f32 tensor on the same device (no host sync)."""
-    global launches
-    _check_vec(x, "x")
-    t = thresh.reshape(-1)
-    if t.numel() != 1 or t.dtype != torch.float32 or t.device != x.device:
-        raise ValueError("thresh must be one f32 value on x's device")
-    t = t.contiguous()
+    check_vec(x, "x")
+    t = check_thresh(thresh, x)
     fn = build.function("topk_mask", "repro_threshold_sparsify",
                         [ctypes.c_void_p] * 4
                         + [ctypes.c_longlong, ctypes.c_void_p])
@@ -45,14 +38,24 @@ def threshold_sparsify_cuda(x, thresh):
         err = fn(x.data_ptr(), t.data_ptr(), kept.data_ptr(),
                  resid.data_ptr(), x.numel(),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    launches += 1
+    build.LAUNCHES["threshold_sparsify"] += 1
     build.check(err, "threshold_sparsify")
     return kept, resid
 
 
-def _check_vec(x, name):
+def check_vec(x, name, dtype=torch.float32):
+    """A contiguous 1-D CUDA tensor of ``dtype``, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D f32 tensor, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+
+
+def check_thresh(thresh, x):
+    """The threshold as one contiguous f32 value on x's device (read by the
+    kernel from device memory, so no host sync), or raise."""
+    t = thresh.reshape(-1)
+    if t.numel() != 1 or t.dtype != torch.float32 or t.device != x.device:
+        raise ValueError("thresh must be one f32 value on x's device")
+    return t.contiguous()

@@ -4,10 +4,10 @@ clients run one after another on one card.
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \\
         --compressor "topk:0.05>>qsgd:8" --backend kernel
 
-``--device`` defaults to ``cuda`` and the run fails without a card unless
-``--device cpu`` is given.  The reference CLI's mesh, async, population,
-scenario, tracing, downlink, selection and server-optimizer options are not
-ported yet.
+``--downlink lfl8`` QSGD-quantizes the broadcast model (LFL).  ``--device``
+defaults to ``cuda`` and the run fails without a card unless ``--device
+cpu`` is given.  The reference CLI's mesh, async, population, scenario,
+tracing, selection and server-optimizer options are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ def _parse(argv=None):
     ap.add_argument("--local-steps", type=int, default=2)
     ap.add_argument("--local-lr", type=float, default=0.2)
     ap.add_argument("--compressor", default="none")
+    ap.add_argument("--downlink", default="none")
     ap.add_argument("--backend", default="jax", choices=["jax", "kernel"],
                     help="encode backend for every wire hop: jax = the "
                          "plain PyTorch path, kernel = the CUDA kernels")
@@ -52,7 +53,8 @@ def main(argv=None):
     model = Model(cfg)
     fl = FLConfig(algorithm=args.algorithm, local_steps=args.local_steps,
                   local_lr=args.local_lr, uplink_compressor=args.compressor,
-                  backend=args.backend, seed=args.seed)
+                  downlink_compressor=args.downlink, backend=args.backend,
+                  seed=args.seed)
     sim = make_sim_step(model, fl, args.clients, chunk=args.seq,
                         device=device)
     data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=args.clients,
@@ -61,7 +63,8 @@ def main(argv=None):
                          heterogeneity=1.5, seed=args.seed)
     print(f"sim arch={cfg.name} clients={args.clients} "
           f"params={model.param_count():,} device={device} "
-          f"uplink={args.compressor} backend={args.backend}", flush=True)
+          f"uplink={args.compressor} downlink={args.downlink} "
+          f"backend={args.backend}", flush=True)
     state = sim.init_fn(args.seed)
     t0 = time.perf_counter()
     state, ms = run_rounds(sim.engine, state,

@@ -110,7 +110,7 @@ def test_spec_grammar_names_and_errors():
         make_compressor("qsgd:8@fused")
     with pytest.raises(NotImplementedError,
                        match="repro.compress.sparsification"):
-        make_compressor("topk:0.1>>ternary")
+        make_compressor("sbc:0.1")
     with pytest.raises(NotImplementedError, match="repro.compress.secure_agg"):
         make_compressor("qsgd:4>>secagg")
     with pytest.raises(KeyError):

@@ -42,7 +42,7 @@ from repro.core.types import FLConfig as FLConfigJax
 from repro.data.synthetic import FedDataConfig, sample_round
 from repro.models.model import Model as ModelJax
 from repro_torch.configs.registry import get_arch
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import params_from_jax, state_from_jax
 from repro_torch.core import engine as ET
 from repro_torch.core import server_opt as ST
 from repro_torch.core.simulate import make_sim_step
@@ -148,23 +148,12 @@ def test_wire_round_bitexact_against_reference(spec):
         _same_ledger(led_t, led_j)
 
 
-def _fill(template, leaves):
-    """The port's state structure with the reference's arrays in order."""
-    if isinstance(template, torch.Tensor):
-        return to_torch(next(leaves))
-    if isinstance(template, dict):
-        return {k: _fill(v, leaves) for k, v in template.items()}
-    if isinstance(template, tuple):
-        return tuple(_fill(v, leaves) for v in template)
-    return template
-
-
 def _port_state(sim_t, st_j):
     """The reference's FLState as the port's: params, EF residuals, the
     round and the rng (as a JaxKey)."""
     st = sim_t.engine.state_from_params(
         params_from_jax(jax.tree.map(np.asarray, st_j.params)))
-    st.comm_state = _fill(st.comm_state, iter(_tree_np(st_j.comm_state)))
+    st.comm_state = state_from_jax(st.comm_state, _tree_np(st_j.comm_state))
     st.rng, st.round = JaxKey(st_j.rng), int(st_j.round)
     return st
 

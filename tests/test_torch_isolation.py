@@ -8,7 +8,7 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import bitpack, build, ops, qsgd, topk_mask
+from repro_torch.kernels import bitpack, build, ops, qsgd, ternary
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,7 +59,7 @@ def test_unported_knobs_raise_naming_the_reference_module():
     model = Model(get_arch("paper_lm"))
     for kw, module in ((dict(algorithm="scaffold"), "repro.core.engine"),
                        (dict(server_opt="fedadam"), "repro.core.server_opt"),
-                       (dict(dgc_momentum=0.9), "repro.compress.pipeline"),
+                       (dict(telemetry=True), "repro.obs.telemetry"),
                        (dict(secure_agg=True), "repro.compress.secure_agg"),
                        (dict(scenario_dropout=0.1), "repro.core.scenario")):
         with pytest.raises(NotImplementedError, match=module):
@@ -102,15 +102,25 @@ def test_kernel_wrappers_raise_on_cuda_tensor_without_a_build(monkeypatch,
     monkeypatch.setattr(build, "_LIBS", {})
     monkeypatch.setattr(build, "_FUNCS", {})
     x, one = _FakeCuda(3001), _FakeCuda(1)
-    before = (topk_mask.launches, qsgd.launches, bitpack.launches)
+    before = dict(build.LAUNCHES)
     for call in (lambda: ops.threshold_sparsify(x, one),
                  lambda: ops.qsgd_quantize(x, x, 8, 2048),
-                 lambda: ops.qsgd_quantize_packed(x, x, 4, 2048)):
+                 lambda: ops.qsgd_quantize_packed(x, x, 4, 2048),
+                 lambda: ternary.ternarize_cuda(x, one),
+                 lambda: bitpack.ternarize_pack_cuda(x, one)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert (topk_mask.launches, qsgd.launches, bitpack.launches) == before
+    assert dict(build.LAUNCHES) == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ops.qsgd_quantize(torch.zeros(4, device="meta"),
                           torch.zeros(4, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         qsgd.qsgd_quantize_cuda(torch.zeros(4), torch.zeros(4))
+    for cuda_only in (lambda: ternary.ternarize_cuda(torch.zeros(4),
+                                                     torch.zeros(1)),
+                      lambda: bitpack.pack_codes_cuda(
+                          torch.zeros((1, 8), dtype=torch.int8)),
+                      lambda: bitpack.unpack_codes_cuda(
+                          torch.zeros((1, 2), dtype=torch.uint8))):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_only()
