@@ -14,7 +14,12 @@ line is printed):
      ``w_up`` at 268,435,456 elements), with the kernel's, the plain
      version's and the bound's times.  Codes, packed bytes, scales and
      counts are bit-equal; the ternarize kernels' per-row ``psum`` is a sum
-     in another order, held at a relative error of 1e-6;
+     in another order, held at a relative error of 1e-6; the count
+     sketch's buckets are sums in another order, held at
+     ``|S - S_plain| <= 1e-4 * M`` (M the bucket's absolute mass) at every
+     paper_lm leaf size with its adapted width (rows 3 and 5), n = 3001,
+     an unaligned view, 10 rows (two row groups), rows of 70,000 and
+     131,072 columns (column tiles) and w_up (5 x 4096);
   4. slice 1's path: paper_lm at full width, 8 clients, 3 sim rounds of
      EF ``topk:0.05>>qsgd:8`` and ``topk:0.05>>qsgd:4@fused``, each with
      ``backend="kernel"`` and with the plain backend on the card — params,
@@ -27,16 +32,29 @@ line is printed):
      backends, mu within rtol 1e-5 (DGC: identical rows); then 3
      free-running rounds of each, whose losses are printed with their
      largest relative gap (DGC: bit-identical runs);
+  4c. slice 3's path: paper_lm at full width, 8 clients, E=2, lr 0.1, on
+     both backends, of the reference's FetchSGD runs: EF ``sketch``
+     (top-k fraction 0.1) and EF ``sketch>>qsgd:8``.  First, outside the
+     counted phases, round 1 from one state gives identical deltas,
+     losses and ledger on both backends and every client's sketch within
+     phase 3's tolerance, and prints the overlap of the decoded supports;
+     then 3 free-running rounds of each, whose losses may differ by a
+     relative 1e-3 at most;
+  4d. the kernel-less stages on paper_lm, one round each on the card's
+     plain ops: EF ``sbc`` (0.01), ``randmask:0.05``, EF ``hsq`` and
+     ``uveq``, each with a finite loss and the ledger equal to its static
+     terms;
   5. llama3_2_1b at full width and depth (bf16), 2 clients, 2 rounds of
      ``topk:0.05>>qsgd:4@fused`` through the kernels;
-  5b. the same of EF ``stc:0.1@fused`` with an ``lfl8`` downlink.  Phases 5
-     and 5b need a finite loss and the ledger equal to its static terms,
-     and print the peak memory.  The kernel runs of phases 4-5b go under
-     ``torch.profiler``, which prints the device's busy share and device
-     time by launching operator;
+  5b. the same of EF ``stc:0.1@fused`` with an ``lfl8`` downlink;
+  5c. the same of EF ``sketch>>qsgd:8``.  Phases 5-5c need a finite loss
+     and the ledger equal to its static terms, and print the peak memory.
+     The kernel runs of phases 4-5c go under ``torch.profiler``, which
+     prints the device's busy share and device time by launching operator;
   6. the ``kernels`` JSON line: launch counts are those of the main-path
-     phases (4, 4b, 5, 5b), each counted from 0 just before its phase; the
-     pack and unpack kernels are on no path and count their phase-3 calls;
+     phases (4, 4b, 4c, 4d, 5, 5b, 5c), each counted from 0 just before its
+     phase; the pack and unpack kernels are on no path and count their
+     phase-3 calls;
   7. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -58,6 +76,9 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+# H100 SXM INT32: 64 INT32 lanes per SM (Hopper white paper) on 132 SMs at
+# the 1.98 GHz boost clock that the f32 peak above also assumes
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 PAPER_LM_CLIENTS, PAPER_LM_SEQ, PAPER_LM_BATCH, PAPER_LM_ROUNDS = 8, 32, 2, 3
 LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS = 2, 128, 1, 2
@@ -78,11 +99,30 @@ STC_RUNS = (
      ("threshold_sparsify",)),
 )
 LLAMA_STC = dict(uplink_compressor="stc:0.1@fused", downlink_compressor="lfl8")
+# slice 3's path: the reference's FetchSGD runs (benchmarks/run.py
+# bench_bytes_to_loss "sketch" and bench_combined "sketch+qsgd8"), E=2,
+# lr 0.1, EF on (the sketch is biased)
+SKETCH_RUNS = (
+    ("EF sketch f0.1", dict(uplink_compressor="sketch", topk_fraction=0.1),
+     ("count_sketch",)),
+    ("EF sketch>>qsgd:8", dict(uplink_compressor="sketch>>qsgd:8"),
+     ("count_sketch", "qsgd_quantize")),
+)
+SKETCH_LR = 0.1
+# the kernel-less stages, one round each on the card's plain ops
+PLAIN_STAGES = (("EF sbc 0.01", dict(uplink_compressor="sbc",
+                                     topk_fraction=0.01)),
+                ("randmask:0.05", dict(uplink_compressor="randmask:0.05")),
+                ("EF hsq", dict(uplink_compressor="hsq")),
+                ("uveq", dict(uplink_compressor="uveq")))
+LLAMA_SKETCH = dict(uplink_compressor="sketch>>qsgd:8")
+SKETCH_TOL = 1e-4                # |S - S_plain| <= 1e-4 * bucket mass
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
                "ternarize_pack_rows", "pack_codes_words",
-               "unpack_codes_words")
+               "unpack_codes_words", "count_sketch_partial",
+               "count_sketch_reduce")
 # name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "threshold_sparsify": ("src/repro_torch/kernels/csrc/topk_mask.cu",
@@ -99,6 +139,8 @@ KERNELS = {
                    "src/repro/kernels/bitpack.py:141"),
     "unpack_codes": ("src/repro_torch/kernels/csrc/bitpack.cu",
                      "src/repro/kernels/bitpack.py:161"),
+    "count_sketch": ("src/repro_torch/kernels/csrc/count_sketch.cu",
+                     "src/repro/kernels/count_sketch.py:52"),
 }
 OFF_PATH = ("pack_codes", "unpack_codes")      # no path runs them
 
@@ -198,7 +240,96 @@ def check_kernels(dev):
                     if "psum_rel_err" in row:
                         results[name]["psum_rel_err"] = worst_rel
         results[name]["calls"] = build.LAUNCHES[name]
+    results["count_sketch"] = check_count_sketch(leaves, g, dev)
+    results["count_sketch"]["calls"] = build.LAUNCHES["count_sketch"]
     return results
+
+
+def sketch_mass(x, a, b, rows, cols):
+    """Each bucket's absolute mass, the plain sketch of |x| with every sign
+    +1 (f64): the scale of the tolerance on S."""
+    from repro_torch.compress.sketch import _chunks, bucket_and_sign
+    M = torch.zeros(rows * cols, dtype=torch.float64, device=x.device)
+    offs = torch.arange(rows, device=x.device)[:, None] * cols
+    for lo, hi in _chunks(x.shape[0]):
+        h, _ = bucket_and_sign(torch.arange(lo, hi, device=x.device), a, b,
+                               cols)
+        M.index_add_(0, (h + offs).reshape(-1),
+                     x[lo:hi].abs().double().expand(rows, -1).reshape(-1))
+    return M.reshape(rows, cols)
+
+
+def check_count_sketch(leaves, g, dev):
+    """Kernel #6 against its plain version at every paper_lm leaf size with
+    its adapted width (rows 3 and 5), at n = 3001, an unaligned view, the
+    row-group and column-tile plans, and w_up (5 x 4096), all with the
+    same hash parameters per row count:
+    ``|S - S_plain| <= SKETCH_TOL * M + 1e-30`` elementwise, M the bucket
+    mass.  Whether two launches on one input are bit-identical is printed
+    (the order of the shared-memory atomics may vary)."""
+    from repro_torch.compress.sketch import CountSketch, hash_params
+    from repro_torch.kernels import count_sketch as cs
+
+    # (n, rows[, cols]): the explicit widths take the kernel's other
+    # launch plans, rows in groups of at most 8 and rows wider than shared
+    # memory in column tiles (the spec grammar allows any sketch:r,c)
+    shapes = ([(n, r) for r in (3, 5) for n in leaves]
+              + [(3001, 5), ("u5001", 5), (5000, 10, 512),
+                 (500_000, 2, 70_000), (600_000, 2, 131_072),
+                 (LLAMA_W_UP, 5)])
+    worst, worst_abs, relaunch_same, row = 0.0, 0.0, True, None
+    for n, rows, *width in shapes:
+        label = n
+        if isinstance(n, str):
+            n = int(n[1:])
+            x = (torch.randn(n + 1, generator=g, device=dev) * 2.0)[1:]
+            label = f"{n} (unaligned)"
+        else:
+            x = torch.randn(n, generator=g, device=dev) * 2.0
+        cols = width[0] if width else CountSketch(rows, 4096)._cols(n)
+        a, b = hash_params(rows)
+        kern = lambda: cs.count_sketch_cuda(x, a, b, rows, cols)
+        plain = lambda: cs.count_sketch_plain(x, a, b, rows, cols)
+        S, S2, P = kern(), kern(), plain()
+        M = sketch_mass(x, a, b, rows, cols)
+        torch.cuda.synchronize()
+        if S.shape != P.shape or S.dtype != P.dtype:
+            fail(f"count_sketch n={label}: shape/dtype {tuple(S.shape)} "
+                 f"{S.dtype} != {tuple(P.shape)} {P.dtype}")
+        err = (S.double() - P.double()).abs()
+        if not bool((err <= SKETCH_TOL * M + 1e-30).all()):
+            fail(f"count_sketch n={label} rows={rows} cols={cols}: |S - "
+                 f"S_plain| exceeds {SKETCH_TOL} of the bucket mass (worst "
+                 f"ratio {float((err / M.clamp(min=1e-30)).max()):.3e})")
+        ratio = float((err / M.clamp(min=1e-30)).max())
+        same = torch.equal(S, S2)
+        worst, worst_abs = max(worst, ratio), max(worst_abs, float(err.max()))
+        relaunch_same = relaunch_same and same
+        big = n > 1 << 24
+        ms = cuda_ms(kern, 20 if big else 200)
+        plain_ms = cuda_ms(plain, 3 if big else 20)
+        nbytes = 4 * n + 4 * rows * cols
+        n_ops = 6 * rows * n         # INT32 hash work per (row, element)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = n_ops / INT32_OPS_PER_S * 1e3
+        bound_ms = max(byte_ms, op_ms)
+        print(f"kernel count_sketch       n={label!s:>20} rows={rows} "
+              f"cols={cols} err/mass={ratio:.2e} relaunch bit-identical="
+              f"{'yes' if same else 'no'} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (bytes "
+              f"{byte_ms:.4f}, INT32 {op_ms:.4f}; {100 * bound_ms / ms:.0f}% "
+              f"of bound)", flush=True)
+        row = dict(n=f"{label} x {rows}x{cols}", ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bytes_bound_ms=byte_ms,
+                   int32_bound_ms=op_ms,
+                   bound_by="bytes" if byte_ms >= op_ms else "operations")
+        del x, S, S2, P, M, err
+    print(f"count_sketch: {len(shapes)} shapes within {SKETCH_TOL} of the "
+          f"bucket mass (worst ratio {worst:.3e}); two launches on one "
+          f"input bit-identical at every shape: "
+          f"{'yes' if relaunch_same else 'no'}", flush=True)
+    return dict(row, max_abs_err=worst_abs, sketch_err_over_mass=worst,
+                relaunch_bit_identical=relaunch_same)
 
 
 def check_one(name, n, bits, g, dev):
@@ -476,17 +607,17 @@ def check_launches(ran, expect, what):
                  f"{'some' if name in expect else 'none'})")
 
 
-def first_round(model, fl_kw, backend, dev):
+def first_round(model, fl_kw, backend, dev, local_lr=0.2):
     """Round 1 of the sim program's hops from one fixed state: the
-    downlinked params, the client losses and each client's decoded rows
+    downlinked params, the client losses, each client's decoded rows
     (whose signs are the codes and support, and whose magnitudes are mu
-    on the ternary wires), and the static ledger terms."""
+    on the ternary wires), the static ledger terms and the client deltas."""
     from repro_torch.core import engine as ET
     from repro_torch.core.rng import PRNGKey
     from repro_torch.core.types import FLConfig
     from repro_torch.data.synthetic import sample_round
 
-    fl = FLConfig(backend=backend, local_steps=2, local_lr=0.2, **fl_kw)
+    fl = FLConfig(backend=backend, local_steps=2, local_lr=local_lr, **fl_kw)
     terms, up, down = ET.ledger_terms(model, fl)
     disp = ET.make_dispatch(model, fl, up, down, PAPER_LM_CLIENTS,
                             PAPER_LM_SEQ)
@@ -500,7 +631,7 @@ def first_round(model, fl_kw, backend, dev):
     rows, _ = disp.wire_rows(deltas, ET.comm_state_init(
         up, params, PAPER_LM_CLIENTS, dev) if up.stateful else None, r_up)
     torch.cuda.synchronize()
-    return terms, p_down, losses, rows
+    return terms, p_down, losses, rows, deltas
 
 
 def stc_first_rounds(dev):
@@ -514,7 +645,7 @@ def stc_first_rounds(dev):
     model = Model(get_arch("paper_lm"))
     for label, fl_kw, _ in STC_RUNS:
         exact = "dgc_momentum" in fl_kw     # no mu: every output exact
-        (tk, pk, lk, rk), (tp, pp, lp, rp) = (
+        (tk, pk, lk, rk, _), (tp, pp, lp, rp, _) = (
             first_round(model, fl_kw, b, dev) for b in ("kernel", "jax"))
         if tk != tp:
             fail(f"{label}: ledger terms differ {tk} != {tp}")
@@ -597,6 +728,131 @@ def stc_phase(dev):
               flush=True)
 
 
+def sketch_first_rounds(dev):
+    """Slice 3's path on paper_lm, round 1 from one state on both backends
+    for each of ``SKETCH_RUNS``: identical losses and ledger terms, every
+    client's sketch S of every leaf within phase 3's tolerance of the
+    plain one, and the overlap of the decoded supports printed.  A
+    comparison of the backends, so it runs outside the counted phases."""
+    from repro_torch.compress import sketch as SK
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.types import FLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    for label, fl_kw, _ in SKETCH_RUNS:
+        (tk, _, lk, rk, dk), (tp, _, lp, rp, dp) = (
+            first_round(model, fl_kw, b, dev, SKETCH_LR)
+            for b in ("kernel", "jax"))
+        if tk != tp:
+            fail(f"{label}: ledger terms differ {tk} != {tp}")
+        if not torch.equal(lk, lp):
+            fail(f"{label}: round-1 losses differ {lk} != {lp}")
+        fl = FLConfig(**fl_kw)
+        stage = SK.CountSketch(fl.sketch_rows, fl.sketch_cols)
+        a, b = SK.hash_params(stage.rows)
+        worst, overlap = 0.0, 1.0
+        for (name, d), d_p in zip(dk.items(), dp.values()):
+            if not torch.equal(d, d_p):
+                fail(f"{label}: round-1 deltas of {name} differ")
+            for c in range(PAPER_LM_CLIENTS):
+                x = d[c].reshape(-1).to(torch.float32)
+                cols = stage._cols(x.shape[0])
+                S_k = ops.sketch(x, stage.rows, cols)
+                S_p = SK.sketch(x, stage.rows, cols)
+                M = sketch_mass(x, a, b, stage.rows, cols)
+                err = (S_k.double() - S_p.double()).abs()
+                if not bool((err <= SKETCH_TOL * M + 1e-30).all()):
+                    fail(f"{label}: round-1 sketch of {name} client {c} "
+                         f"exceeds {SKETCH_TOL} of the bucket mass")
+                worst = max(worst, float((err / M.clamp(min=1e-30)).max()))
+        for (name, a_), b_ in zip(rk.items(), rp.values()):
+            sk_, sp_ = a_ != 0, b_ != 0
+            union = max(1, int((sk_ | sp_).sum()))
+            overlap = min(overlap, int((sk_ & sp_).sum()) / union)
+        print(f"paper_lm {label}: round 1 from one state — deltas, losses "
+              f"and ledger identical on both backends; S within "
+              f"{SKETCH_TOL} of the bucket mass (worst ratio {worst:.3e}); "
+              f"decoded supports overlap >= {overlap:.4f} (intersection "
+              f"over union, worst leaf)", flush=True)
+
+
+def sketch_phase(dev):
+    """Slice 3's path on paper_lm: 3 free-running rounds on both backends
+    for each of ``SKETCH_RUNS``; the losses' largest relative gap must stay
+    within 1e-3."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    print(f"paper_lm count-sketch path: {PAPER_LM_CLIENTS} clients, seq "
+          f"{PAPER_LM_SEQ}, batch {PAPER_LM_BATCH}, {PAPER_LM_ROUNDS} rounds, "
+          f"E=2 lr={SKETCH_LR}", flush=True)
+    for label, fl_kw, expect in SKETCH_RUNS:
+        losses = {}
+        for backend in ("kernel", "jax"):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                sim, state, ms = run_sim(model, fl_kw, backend,
+                                         PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                                         PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
+                                         2, SKETCH_LR)
+            secs = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, expect if backend == "kernel" else (),
+                           f"paper_lm {label} backend={backend}")
+            loss = [float(v) for v in ms["loss"]]
+            if not all(v == v and abs(v) < 1e6 for v in loss):
+                fail(f"paper_lm {label} {backend}: loss not finite {loss}")
+            check_ledger(sim, ms, PAPER_LM_CLIENTS, f"paper_lm {label}")
+            print(f"paper_lm {label} backend={backend}: loss per round "
+                  f"{[round(v, 6) for v in loss]} "
+                  f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
+                  f"launches {ran} ({secs:.2f}s under the profiler)",
+                  flush=True)
+            if backend == "kernel":
+                print_profile(prof, secs, f"paper_lm {label}", top=6)
+            losses[backend] = ms["loss"]
+        gap = float(((losses["kernel"] - losses["jax"]).abs()
+                     / losses["jax"].abs()).max())
+        if not gap <= 1e-3:
+            fail(f"paper_lm {label}: free-running losses differ by {gap:.3e} "
+                 f"(relative) between the backends, above 1e-3")
+        print(f"paper_lm {label}: free-running loss, kernel vs plain, "
+              f"largest relative gap {gap:.3e} (limit 1e-3)", flush=True)
+
+
+def plain_stages_phase(dev):
+    """The kernel-less stages on paper_lm, one round each on the card's
+    plain ops: a finite loss, the ledger equal to its static terms, and no
+    kernel launched."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    for label, fl_kw in PLAIN_STAGES:
+        before = launch_counts()
+        t0 = time.perf_counter()
+        sim, _, ms = run_sim(model, fl_kw, "jax", PAPER_LM_CLIENTS,
+                             PAPER_LM_SEQ, PAPER_LM_BATCH, 1, dev, 2, 0.2)
+        secs = time.perf_counter() - t0
+        check_launches({k: v - before[k]
+                        for k, v in launch_counts().items()}, (),
+                       f"paper_lm {label}")
+        loss = float(ms["loss"][0])
+        if not (loss == loss and abs(loss) < 1e6):
+            fail(f"paper_lm {label}: loss not finite {loss}")
+        check_ledger(sim, ms, PAPER_LM_CLIENTS, f"paper_lm {label}")
+        print(f"paper_lm {label} (uplink {fl_kw['uplink_compressor']}, "
+              f"plain backend): round-1 loss "
+              f"{loss:.6f} up={float(ms['ledger'].uplink_wire[0]):,.0f} "
+              f"B/round, ledger == static terms ({secs:.2f}s)", flush=True)
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -619,7 +875,7 @@ def print_profile(prof, wall_s, what, top=10):
         print(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d} calls  "
               f"{e.key[:90]}")
     ours = [e for e in on_device
-            if any(f"{k}(" in e.key for k in OUR_KERNELS)]
+            if any(f"{k}(" in e.key or f"{k}<" in e.key for k in OUR_KERNELS)]
     for e in ours:
         print(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d} launches  "
               f"{e.key[:90]} (port kernel)")
@@ -637,8 +893,11 @@ def kernel_rows(kern, launches):
                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None, "n": k["n"]}
-        if "psum_rel_err" in k:
-            row["psum_rel_err"] = k["psum_rel_err"]
+        for extra in ("psum_rel_err", "sketch_err_over_mass",
+                      "relaunch_bit_identical", "bytes_bound_ms",
+                      "int32_bound_ms"):
+            if extra in k:
+                row[extra] = k[extra]
         if name in OFF_PATH:
             row["launches_from"] = "phase 3 (no path runs this kernel)"
         rows.append(row)
@@ -678,17 +937,22 @@ def main():
 
     kern = check_kernels(dev)
     stc_first_rounds(dev)
+    sketch_first_rounds(dev)
 
     # the main paths' launch counts: every counter at 0 just before each
     # path's phase, read just after (the comparisons above do not count)
     launches = {name: 0 for name in KERNELS}
-    for phase in (paper_lm_phase, stc_phase,
+    for phase in (paper_lm_phase, stc_phase, sketch_phase,
+                  plain_stages_phase,
                   lambda d: llama_phase(d, dict(uplink_compressor=CHAINS[1]),
                                         ("threshold_sparsify", "qsgd_pack"),
                                         CHAINS[1]),
                   lambda d: llama_phase(d, LLAMA_STC,
                                         ("ternarize_pack", "qsgd_quantize"),
-                                        "EF stc:0.1@fused + lfl8")):
+                                        "EF stc:0.1@fused + lfl8"),
+                  lambda d: llama_phase(d, LLAMA_SKETCH,
+                                        ("count_sketch", "qsgd_quantize"),
+                                        "EF sketch>>qsgd:8")):
         build.LAUNCHES.clear()
         phase(dev)
         for name, count in launch_counts().items():

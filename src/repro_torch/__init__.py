@@ -7,8 +7,9 @@ counterpart is found by path.  It imports ``torch`` and never ``jax`` or
 only code that imports both.
 
 The port runs the synchronous FedAvg round of the ``sim`` topology with a
-``topk:<f>>>qsgd:<b>`` or STC (``stc``, ``stc:<f>@fused``,
-``topk>>ternary``) uplink under error feedback or DGC, and an optional
+``topk:<f>>>qsgd:<b>``, STC (``stc``, ``stc:<f>@fused``,
+``topk>>ternary``), count-sketch (``sketch``, ``sketch>>qsgd:8``), SBC,
+RandMask, HSQ or UVeQ uplink under error feedback or DGC, and an optional
 LFL (``lfl8``) downlink.  Its compression kernels are hand-written CUDA
 for ``sm_90a`` (``kernels/csrc``); on a CPU tensor each wrapper runs its
 plain PyTorch version instead.  Knobs of ``repro`` that this slice does not port raise

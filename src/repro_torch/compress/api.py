@@ -130,11 +130,6 @@ _STAGES: Dict[str, Callable[..., CommTransform]] = {}
 
 # stage names the JAX reference registers that the port has not ported
 _NOT_PORTED = {
-    "sbc": "repro.compress.sparsification",
-    "randmask": "repro.compress.sparsification",
-    "sketch": "repro.compress.sketch",
-    "hsq": "repro.compress.quantization",
-    "uveq": "repro.compress.quantization",
     "secagg": "repro.compress.secure_agg",
     "dpnoise": "repro.compress.secure_agg",
 }

@@ -1,9 +1,12 @@
 """Quantization stages (port of ``repro.compress.quantization``).
 
-Only QSGD (``qsgd:<bits>``, the legacy ``qsgd8`` / ``qsgd4`` / ``lfl8``)
-is ported; ``hsq`` and ``uveq`` raise ``NotImplementedError`` from the
-spec grammar.  The entropy model ``_tail_elias_bits_per_coord`` is a copy
-of the reference's host arithmetic, so ``entropy_bits`` agrees exactly.
+  * ``qsgd:<bits>`` (and the legacy ``qsgd8`` / ``qsgd4`` / ``lfl8``) —
+    stochastic uniform quantization with a per-block scale;
+  * ``hsq``  — 1-bit sign with a per-block mean magnitude (biased);
+  * ``uveq`` — subtractive-dither uniform quantization (unbiased).
+
+The entropy model ``_tail_elias_bits_per_coord`` is a copy of the
+reference's host arithmetic, so ``entropy_bits`` agrees exactly.
 """
 from __future__ import annotations
 
@@ -133,12 +136,94 @@ class QSGD(CommTransform):
         return min(est, self.meta_bits(n)) if self.wire == "packed" else est
 
 
+def _adapted_blocked(x, block):
+    """Flat (n,) -> (nb, blk) f32 with the block adapted to short inputs,
+    ``blk = min(block, n)``, as the reference's ``_blocked``."""
+    return blocked(x, max(1, min(block, x.shape[0])))
+
+
+class UVeQ(CommTransform):
+    """Subtractive-dither uniform quantization (UVeQFed-style, unbiased).
+
+    The dither is ``jax.random.uniform(key, shape, f32, -0.5, 0.5)``'s own
+    construction from the key's [0, 1) uniforms, ``max(-0.5, u * 1.0 +
+    (-0.5))`` (the product is exact), so a key with the reference's bits
+    gives its dither bit for bit.  The key travels in the payload
+    (``"useed"``) and the receiver redraws the dither from it."""
+
+    def __init__(self, bits=4, block=2048):
+        self.bits = bits
+        self.block = block
+        self.name = f"uveq{bits}"
+
+    def _delta(self, scale):
+        levels = torch.tensor(float(2 ** (self.bits - 1) - 1),
+                              dtype=torch.float32, device=scale.device)
+        return torch.clamp(scale, min=1e-30) / levels
+
+    @staticmethod
+    def _dither(key, shape, device):
+        return torch.clamp(key.uniform(shape, device) - 0.5, min=-0.5)
+
+    def encode(self, state, rng, x):
+        xb = _adapted_blocked(x, self.block)
+        scale = xb.abs().amax(dim=1, keepdim=True)
+        delta = self._delta(scale)
+        u = self._dither(rng, xb.shape, x.device) * delta
+        q = to_int8(torch.round((xb + u) / delta))
+        return {"q": q, "scale": scale[:, 0], "useed": rng}, state
+
+    def decode(self, payload, n):
+        delta = self._delta(payload["scale"][:, None])
+        xb = payload["q"].to(torch.float32) * delta
+        u = self._dither(payload["useed"], xb.shape, xb.device) * delta
+        return (xb - u).reshape(-1)[:n]
+
+    def meta_bits(self, n):
+        nb = -(-n // self.block)
+        return 8.0 * n + 32.0 * nb + 32.0
+
+    def meta_entropy_bits(self, n):
+        nb = -(-n // self.block)
+        return float(self.bits) * n + 32.0 * nb + 32.0
+
+
+class HSQ(CommTransform):
+    """1-bit sign with a per-block mean magnitude (HSQ's codebook reduced
+    to the sign hypersphere, as in the reference).  The mean runs over the
+    whole adapted block, the last block's zero pad lanes included."""
+    biased = True
+
+    def __init__(self, block=2048):
+        self.block = block
+        self.name = "hsq"
+
+    def encode(self, state, rng, x):
+        xb = _adapted_blocked(x, self.block)
+        return {"sign": torch.sign(xb).to(torch.int8),
+                "mu": xb.abs().mean(dim=1)}, state
+
+    def decode(self, payload, n):
+        xb = payload["sign"].to(torch.float32) * payload["mu"][:, None]
+        return xb.reshape(-1)[:n]
+
+    def meta_bits(self, n):
+        nb = -(-n // self.block)
+        return 8.0 * n + 32.0 * nb               # int8-stored signs
+
+    def meta_entropy_bits(self, n):
+        nb = -(-n // self.block)
+        return 1.0 * n + 32.0 * nb               # 1 bit/sign after packing
+
+
 register("qsgd8")(lambda block=2048, backend="jax", **kw:
                   QSGD(8, block, backend))
 register("qsgd4")(lambda block=2048, backend="jax", **kw:
                   QSGD(4, block, backend))
 register("lfl8")(lambda block=2048, backend="jax", **kw:
                  QSGD(8, block, backend))
+register("uveq")(lambda block=2048, **kw: UVeQ(4, block))
+register("hsq")(lambda block=2048, **kw: HSQ(block))
 
 # a global wire_format="packed" degrades gracefully on qsgd:>4 (stays
 # staged); the explicit "@fused" suffix on it still fails in _make_stage
@@ -146,3 +231,6 @@ register_stage("qsgd")(lambda bits=8, blk=None, block=2048, backend="jax",
                        wire="staged", **kw:
                        QSGD(int(bits), int(blk or block), backend,
                             wire if int(bits) <= 4 else "staged"))
+register_stage("uveq")(lambda bits=4, blk=None, block=2048, **kw:
+                       UVeQ(int(bits), int(blk or block)))
+register_stage("hsq")(lambda blk=None, block=2048, **kw: HSQ(int(blk or block)))

@@ -4,10 +4,11 @@
   * ``ternary`` — STC's quantizer as a chainable stage: sign(x)·mean(|x|),
     int8 signs or 2-bit packed (``@fused``);
   * ``stc``     — the legacy name for ``chain(topk, ternary)``, or under
-    ``@fused`` the dense packed :class:`FusedSTC` stage.
-
-``sbc`` and ``randmask`` raise ``NotImplementedError`` from the spec
-grammar.
+    ``@fused`` the dense packed :class:`FusedSTC` stage;
+  * ``sbc``     — sparse binary compression: the top-k support of the
+    dominant sign, one shared magnitude;
+  * ``randmask`` — a random mask drawn from a shared seed, rescaled by
+    1/p (unbiased), with optional Gaussian noise on the survivors.
 """
 from __future__ import annotations
 
@@ -193,6 +194,93 @@ class FusedSTC(CommTransform):
         return min(k * (idx_bits + 1.0) + 32.0, self.meta_bits(n))
 
 
+class SBC(CommTransform):
+    """Sattler et al.: binary — keep only the dominant sign's part of the
+    top-k support, each at the mean magnitude of that part.
+
+    Minority-sign slots of the index vector point at ``n``, one past the
+    end, and decode scatters into an (n + 1) buffer whose last entry is
+    dropped, as in the reference."""
+    biased = True
+
+    def __init__(self, fraction=0.01):
+        self.fraction = fraction
+        self.name = f"sbc{fraction:g}"
+
+    def encode(self, state, rng, x):
+        n = x.shape[0]
+        idx, _ = top_k_indices(x, _k(n, self.fraction))
+        v = x[idx]
+        zero = torch.zeros((), dtype=v.dtype, device=v.device)
+        pos_sum = torch.where(v > 0, v, zero).sum()
+        neg_sum = -torch.where(v < 0, v, zero).sum()
+        s = torch.where(pos_sum >= neg_sum, 1.0, -1.0).to(torch.float32)
+        keep = torch.sign(v) == s
+        mu = (v.abs() * keep).sum() / torch.clamp(keep.sum(), min=1)
+        idx = torch.where(keep, idx, torch.full_like(idx, n))
+        return {"mu": mu * s, "idx": idx.to(torch.int32)}, state
+
+    def decode(self, payload, n):
+        mu = payload["mu"]
+        out = torch.zeros((n + 1,), dtype=torch.float32, device=mu.device)
+        out[payload["idx"].long()] = mu
+        return out[:n]
+
+    def meta_bits(self, n):
+        return _k(n, self.fraction) * 32.0 + 32.0
+
+    def meta_entropy_bits(self, n):
+        k = _k(n, self.fraction)
+        idx_bits = math.log2(max(n / k, 2.0)) + 2
+        return k * idx_bits + 32.0
+
+
+class RandMask(CommTransform):
+    """CPFed: a random-mask sparsifier (unbiased, 1/p rescale) with
+    optional Gaussian noise on the survivors (differential privacy).
+
+    The mask is the top-k of uniform scores drawn from the first half of
+    the split key, which travels in the payload (``"seed"``): the receiver
+    redraws the indices, and only the values are on the wire."""
+    biased = False
+    carrier_key = "vals"
+
+    def __init__(self, fraction=0.05, dp_sigma=0.0):
+        self.fraction = fraction
+        self.dp_sigma = dp_sigma
+        self.name = f"randmask{fraction:g}"
+
+    def _idx(self, seed_key, n, device):
+        scores = seed_key.uniform((n,), device)
+        return top_k_indices(scores, _k(n, self.fraction))[0]
+
+    def encode(self, state, rng, x):
+        n = x.shape[0]
+        seed, noise = rng.split(2)
+        idx = self._idx(seed, n, x.device)
+        vals = x[idx] / torch.tensor(self.fraction, dtype=torch.float32,
+                                     device=x.device)
+        if self.dp_sigma:
+            sigma = torch.tensor(self.dp_sigma, dtype=torch.float32,
+                                 device=x.device)
+            vals = vals + sigma * noise.normal(vals.shape, x.device)
+        return {"vals": vals, "seed": seed}, state
+
+    def decode(self, payload, n):
+        vals = payload["vals"]
+        idx = self._idx(payload["seed"], n, vals.device)
+        out = torch.zeros((n,), dtype=torch.float32, device=vals.device)
+        out[idx] = vals.to(torch.float32)
+        return out
+
+    def carrier_len(self, n):
+        return _k(n, self.fraction)
+
+    def meta_bits(self, n):
+        # the indices are redrawn from the 64-bit seed: only values travel
+        return 64.0
+
+
 def _stc(fraction=0.01, block=2048, backend="jax", wire="staged"):
     if wire == "packed":
         return FusedSTC(fraction, block, backend)
@@ -204,6 +292,9 @@ register("topk")(lambda fraction=0.01, backend="jax", **kw:
                  TopK(fraction, backend))
 register("stc")(lambda fraction=0.01, block=2048, backend="jax",
                 wire="staged", **kw: _stc(fraction, block, backend, wire))
+register("sbc")(lambda fraction=0.01, **kw: SBC(fraction))
+register("randmask")(lambda fraction=0.05, dp_sigma=0.0, **kw:
+                     RandMask(fraction, dp_sigma))
 register_stage("topk")(lambda frac=None, fraction=0.01, backend="jax", **kw:
                        TopK(float(frac if frac is not None else fraction),
                             backend))
@@ -213,3 +304,8 @@ register_stage("stc")(lambda frac=None, fraction=0.01, block=2048,
                       backend="jax", wire="staged", **kw:
                       _stc(float(frac if frac is not None else fraction),
                            int(block), backend, wire))
+register_stage("sbc")(lambda frac=None, fraction=0.01, **kw:
+                      SBC(float(frac if frac is not None else fraction)))
+register_stage("randmask")(lambda frac=None, fraction=0.05, dp_sigma=0.0, **kw:
+                           RandMask(float(frac if frac is not None
+                                          else fraction), dp_sigma))

@@ -9,7 +9,9 @@ its inverse (nested dicts of numpy arrays).  bfloat16 arrays arrive as
 ``state_from_jax`` carries pipeline state (EF residuals, DGC momentum and
 accumulators, the warm-up round counter) across: it fills the port's state
 structure with the reference's arrays, given in ``jax.tree.leaves`` order
-(tuples in order, dict keys sorted).  No function here imports JAX.
+(tuples in order, dict keys sorted).  ``hash_params_from_jax`` takes the
+reference's count-sketch hash parameters (uint32 arrays) in the port's
+int64 form.  No function here imports JAX.
 """
 from __future__ import annotations
 
@@ -85,3 +87,10 @@ def state_from_jax(template, leaves, device="cpu"):
     if next(it, None) is not None:
         raise ValueError("more state leaves than the template holds")
     return out
+
+
+def hash_params_from_jax(a, b):
+    """The reference's ``hash_params`` arrays (uint32, numpy) as the port's
+    (a, b): int64 CPU tensors holding the uint32 values."""
+    return tuple(torch.from_numpy(np.asarray(v, dtype=np.uint32)
+                                  .astype(np.int64)) for v in (a, b))

@@ -2,12 +2,13 @@
 
 The reference threads ``jax.random`` keys through every hop: ``split`` per
 round, per client, ``fold_in`` per leaf and per chain stage, and finally a
-``uniform`` draw for QSGD's stochastic rounding.  The port keeps the same
-key *structure* with :class:`Key`, a counter path hashed into the seed of a
-``torch.Generator`` on the device at the draw.  It does not reproduce
-``jax.random``'s bits; a test that needs the reference's draws passes its
-own object with the same three methods (``split``, ``fold_in`` and
-``uniform``), backed by ``jax.random``.
+``uniform`` draw for QSGD's stochastic rounding (and UVeQ's dither and
+RandMask's scores), or a ``normal`` draw for RandMask's noise.  The port
+keeps the same key *structure* with :class:`Key`, a counter path hashed
+into the seed of a ``torch.Generator`` on the device at the draw.  It does
+not reproduce ``jax.random``'s bits; a test that needs the reference's
+draws passes its own object with the same four methods (``split``,
+``fold_in``, ``uniform`` and ``normal``), backed by ``jax.random``.
 """
 from __future__ import annotations
 
@@ -41,13 +42,22 @@ class Key:
             h.update(struct.pack("<q", v))
         return int.from_bytes(h.digest(), "little") >> 1
 
+    def _generator(self, device) -> torch.Generator:
+        g = torch.Generator(device=torch.device(device))
+        g.manual_seed(self.seed_int())
+        return g
+
     def uniform(self, shape, device) -> torch.Tensor:
         """f32 uniforms in [0, 1) of ``shape`` on ``device``, from a
         ``torch.Generator`` on that device seeded with :meth:`seed_int`."""
-        g = torch.Generator(device=torch.device(device))
-        g.manual_seed(self.seed_int())
-        return torch.rand(tuple(shape), generator=g, dtype=torch.float32,
-                          device=device)
+        return torch.rand(tuple(shape), generator=self._generator(device),
+                          dtype=torch.float32, device=device)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """f32 standard normals of ``shape`` on ``device``, from the same
+        generator as :meth:`uniform`."""
+        return torch.randn(tuple(shape), generator=self._generator(device),
+                           dtype=torch.float32, device=device)
 
 
 def PRNGKey(seed: int) -> Key:

@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("topk_mask", "qsgd", "ternary", "bitpack")
+SOURCES = ("topk_mask", "qsgd", "ternary", "bitpack", "count_sketch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-Xptxas=-v")

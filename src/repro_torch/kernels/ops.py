@@ -8,7 +8,9 @@
   * an odd short-carrier block cannot nibble-pack in the row kernel, so it
     quantizes through the staged kernel and packs in PyTorch;
   * the ternarize wrappers keep the reference's fixed ``block`` (no
-    adaptation), and their thresholds stay on the device (no host sync).
+    adaptation), and their thresholds stay on the device (no host sync);
+  * the count sketch takes x at its own length: the reference pads n to a
+    multiple of its 1024-element chunk, and zero pad lanes add nothing.
 
 Dispatch: a CPU tensor takes the plain PyTorch version, a CUDA tensor the
 CUDA kernel (which raises if it cannot build or launch); any other device
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitpack as _bp
+from repro_torch.kernels import count_sketch as _cs
 from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels import ternary as _tern
 from repro_torch.kernels import topk_mask as _topk
@@ -193,3 +196,12 @@ def unpack_codes(packed, n, bits=2, block=2048):
     impl = _bp.unpack_codes_cuda if _on_cuda(packed) else \
         _bp.unpack_codes_plain
     return impl(pb.reshape(nb, block // per), bits).reshape(-1)[:n]
+
+
+def sketch(x, rows=5, cols=4096, seed=17):
+    """Count sketch of flat f32 x (n,) -> S (rows, cols) f32, with the
+    hash parameters of ``compress.sketch.hash_params(rows, seed)``."""
+    from repro_torch.compress.sketch import hash_params
+    a, b = hash_params(rows, seed)
+    impl = _cs.count_sketch_cuda if _on_cuda(x) else _cs.count_sketch_plain
+    return impl(x, a, b, rows, cols)

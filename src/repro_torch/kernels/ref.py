@@ -94,3 +94,22 @@ def ref_threshold_sparsify_blocked(xb, thresh):
     kept = torch.where(keep, xb, torch.zeros((), dtype=xb.dtype,
                                              device=xb.device))
     return kept, xb - kept
+
+
+def ref_count_sketch(x, a, b, rows, cols):
+    """Count sketch of flat x (n,) with the rows' hash parameters a, b
+    (uint32 values in int64): ``S[j, h_j(i)] += s_j(i) * x_i``, (rows,
+    cols) f32.  One ``index_add_`` per chunk of the flat index
+    (``compress.sketch.CHUNK``), over the flattened S, so each bucket adds
+    its terms in index order."""
+    from repro_torch.compress.sketch import _chunks, bucket_and_sign
+    x = x.to(torch.float32)
+    S = torch.zeros((rows * cols,), dtype=torch.float32, device=x.device)
+    offs = torch.arange(rows, dtype=torch.int64, device=x.device)[:, None] \
+        * cols
+    for lo, hi in _chunks(x.shape[0]):
+        i = torch.arange(lo, hi, dtype=torch.int64, device=x.device)
+        h, s = bucket_and_sign(i, a, b, cols)
+        S.index_add_(0, (h + offs).reshape(-1),
+                     (s * x[lo:hi][None, :]).reshape(-1))
+    return S.reshape(rows, cols)

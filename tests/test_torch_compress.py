@@ -1,12 +1,17 @@
 """(b) Stage and chain payloads, decodes and pipeline state of the port
-against the reference, for the ``topk``, ``qsgd`` and ``topk>>qsgd`` rows
-of ``tests/parity_cases.py``, with the reference's uniforms injected
-through :class:`JaxKey`.
+against the reference, for the ``topk``, ``qsgd``, ``topk>>qsgd``,
+``sketch`` and ``sketch>>qsgd`` rows of ``tests/parity_cases.py``, with the
+reference's uniforms injected through :class:`JaxKey` and its count-sketch
+hash parameters monkeypatched into the port.
 
-Tolerance: none.  Payloads, decodes and EF residuals are bit-exact on both
-of the port's backends (``jax`` = plain PyTorch, ``kernel`` = the kernel
-wrappers, which take their plain versions on a CPU tensor); ``wire_bits``
-and ``entropy_bits`` are float-equal.  Inputs come from numpy.
+Tolerance: none for the exact rows.  Their payloads, decodes and EF
+residuals are bit-exact on both of the port's backends (``jax`` = plain
+PyTorch, ``kernel`` = the kernel wrappers, which take their plain versions
+on a CPU tensor).  The sketch rows (``exact=False``) hold their float
+leaves at the table's ``tol`` (1e-3) relative to the leaf's scale, and
+their integer leaves (QSGD codes) exactly.  ``wire_bits`` and
+``entropy_bits`` are float-equal.  Inputs come from numpy, or from the
+table's heavy-hitter generator for the sketch rows.
 """
 import functools
 
@@ -16,17 +21,18 @@ import numpy as np
 import pytest
 import torch
 
-from parity_cases import CHAIN_CASES, FUSED_CASES, STAGE_CASES, \
+from parity_cases import CHAIN_CASES, FUSED_CASES, INPUTS, STAGE_CASES, \
     WRAPPER_CASES, build
 from repro.compress import make_compressor as make_jax
 from repro_torch.compress import make_compressor
+from repro_torch.compress import sketch as sk_t
 from repro_torch.compress.pipeline import error_feedback
-from test_torch_jaxkeys import JaxKey, ieee_jit
+from test_torch_jaxkeys import JaxKey, ieee_jit, jax_hash_params
 
 CASES = ([c for c in STAGE_CASES if c["name"] in
-          ("topk", "qsgd8", "qsgd4", "qsgd_block256")]
+          ("topk", "qsgd8", "qsgd4", "qsgd_block256", "sketch")]
          + [c for c in CHAIN_CASES if c["name"] in
-            ("topk_qsgd8", "topk_qsgd4")]
+            ("topk_qsgd8", "topk_qsgd4", "sketch_qsgd8")]
          + [c for c in WRAPPER_CASES if c["name"] == "ef_topk_qsgd"]
          + [c for c in FUSED_CASES if c["name"] == "topk_qsgd4_fused"])
 
@@ -44,7 +50,9 @@ def _leaves(tree):
     return [tree]
 
 
-def _same(t, j, what):
+def _same(t, j, what, tol=0.0):
+    """Leaves equal; at ``tol`` > 0, float leaves within ``tol`` of the
+    leaf's scale."""
     t_leaves = _leaves(t)
     j_leaves = jax.tree.leaves(j)
     assert len(t_leaves) == len(j_leaves), what
@@ -52,7 +60,21 @@ def _same(t, j, what):
         b = np.asarray(b)
         assert a.shape == b.shape and str(a.dtype).split(".")[-1] == \
             b.dtype.name, (what, a.shape, a.dtype, b.shape, b.dtype)
-        np.testing.assert_array_equal(a.numpy(), b, err_msg=what)
+        if tol and b.dtype.kind == "f":
+            scale = max(float(np.abs(b).max()) if b.size else 0.0, 1e-6)
+            np.testing.assert_allclose(a.numpy(), b, rtol=tol,
+                                       atol=tol * scale, err_msg=what)
+        else:
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=what)
+
+
+@functools.lru_cache(maxsize=None)
+def _input(kind, n, r):
+    if kind == "gaussian":
+        return (np.random.default_rng(1000 * r + n).standard_normal(n)
+                * 2.0).astype(np.float32)
+    gen = jax.jit(INPUTS[kind], static_argnums=(0, 1))
+    return np.array(gen(1000 * r + n, n), np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,8 +90,7 @@ def _reference_run(name):
     for n in c["sizes"]:
         st = ref.init((n,))
         for r in range(c["rounds"]):
-            x = (np.random.default_rng(1000 * r + n).standard_normal(n)
-                 * 2.0).astype(np.float32)
+            x = _input(c["input"], n, r)
             pay, st = enc(st, _key(r), jnp.asarray(x))
             to_np = lambda t: jax.tree.map(np.asarray, t)
             out.append((n, r, x, to_np(pay), np.asarray(dec(pay, n)),
@@ -83,7 +104,8 @@ def _key(r):
 
 @pytest.mark.parametrize("backend", ["jax", "kernel"])
 @pytest.mark.parametrize("c", CASES, ids=[c["name"] for c in CASES])
-def test_payload_decode_state_bitexact(c, backend):
+def test_payload_decode_state_bitexact(c, backend, monkeypatch):
+    monkeypatch.setattr(sk_t, "hash_params", jax_hash_params)
     ref, rounds = _reference_run(c["name"])
     port = _port(c, backend)
     st_t = None
@@ -94,9 +116,9 @@ def test_payload_decode_state_bitexact(c, backend):
             st_t = port.init((n,), device="cpu")
         pay_t, st_t = port.encode(st_t, JaxKey(_key(r)), torch.from_numpy(x))
         what = f"{c['name']} n={n} round={r}"
-        _same(pay_t, pay_j, what + ": payload")
-        _same(port.decode(pay_t, n), dec_j, what + ": decode")
-        _same(st_t, st_j, what + ": state")
+        _same(pay_t, pay_j, what + ": payload", c["tol"])
+        _same(port.decode(pay_t, n), dec_j, what + ": decode", c["tol"])
+        _same(st_t, st_j, what + ": state", c["tol"])
 
 
 def test_spec_grammar_names_and_errors():
@@ -109,8 +131,8 @@ def test_spec_grammar_names_and_errors():
     with pytest.raises(ValueError, match="no packed wire format"):
         make_compressor("qsgd:8@fused")
     with pytest.raises(NotImplementedError,
-                       match="repro.compress.sparsification"):
-        make_compressor("sbc:0.1")
+                       match="repro.compress.secure_agg"):
+        make_compressor("dpnoise:0.5")
     with pytest.raises(NotImplementedError, match="repro.compress.secure_agg"):
         make_compressor("qsgd:4>>secagg")
     with pytest.raises(KeyError):

@@ -8,7 +8,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import bitpack, build, ops, qsgd, ternary
+from repro_torch.kernels import bitpack, build, count_sketch, ops, qsgd, \
+    ternary
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,7 +108,8 @@ def test_kernel_wrappers_raise_on_cuda_tensor_without_a_build(monkeypatch,
                  lambda: ops.qsgd_quantize(x, x, 8, 2048),
                  lambda: ops.qsgd_quantize_packed(x, x, 4, 2048),
                  lambda: ternary.ternarize_cuda(x, one),
-                 lambda: bitpack.ternarize_pack_cuda(x, one)):
+                 lambda: bitpack.ternarize_pack_cuda(x, one),
+                 lambda: ops.sketch(x, 5, 4096)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
     assert dict(build.LAUNCHES) == before
@@ -121,6 +123,8 @@ def test_kernel_wrappers_raise_on_cuda_tensor_without_a_build(monkeypatch,
                       lambda: bitpack.pack_codes_cuda(
                           torch.zeros((1, 8), dtype=torch.int8)),
                       lambda: bitpack.unpack_codes_cuda(
-                          torch.zeros((1, 2), dtype=torch.uint8))):
+                          torch.zeros((1, 2), dtype=torch.uint8)),
+                      lambda: count_sketch.count_sketch_cuda(
+                          torch.zeros(4), [3], [0], 1, 8)):
         with pytest.raises(ValueError, match="CUDA"):
             cuda_only()

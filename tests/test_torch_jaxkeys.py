@@ -2,20 +2,24 @@
 
 ``repro_torch`` threads keys with the reference's structure (split per
 round and per client, ``fold_in`` per leaf and per chain stage) but draws
-its own uniforms.  :class:`JaxKey` has the port key's three methods and
+its own uniforms.  :class:`JaxKey` has the port key's four methods and
 answers them with ``jax.random``, so a port run handed a ``JaxKey`` draws
-exactly the reference's QSGD uniforms — the key path of the main path is
+exactly the reference's QSGD uniforms (and UVeQ's dither, RandMask's
+scores and noise) — the key path of the main path is
 
     state.rng -> split(5)[3] -> split(C)[c] -> fold_in(leaf)
               -> (EF passes it through) -> fold_in(1) -> uniform((nb, blk))
 
 and both packages walk it.  The tests below pin that equivalence.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro_torch.convert import hash_params_from_jax
 from repro_torch.core.rng import Key
 
 
@@ -36,6 +40,12 @@ class JaxKey:
                                           jnp.float32))
         return torch.from_numpy(u.copy()).to(device)
 
+    def normal(self, shape, device):
+        # compiled like the reference under test (one rounding per op):
+        # the default jit contracts the inverse-erf polynomial into FMAs
+        z = np.asarray(_ieee_normal(self.key, tuple(shape)))
+        return torch.from_numpy(z.copy()).to(device)
+
 
 IEEE_OPTIONS = {"xla_backend_optimization_level": 0,
                 "xla_disable_hlo_passes": "algsimp"}
@@ -50,6 +60,19 @@ def ieee_jit(fn, **jit_kw):
     algebraic simplifier turns ``q / L`` into ``q * (1 / L)`` (DESIGN.md
     §6's engine-scope class)."""
     return jax.jit(fn, compiler_options=IEEE_OPTIONS, **jit_kw)
+
+
+def _ieee_normal(key, shape):
+    return ieee_jit(lambda k: jax.random.normal(k, shape, jnp.float32))(key)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_hash_params(rows, seed=17):
+    """The reference's count-sketch hash parameters in the port's form, to
+    monkeypatch over ``repro_torch.compress.sketch.hash_params``."""
+    from repro.compress.sketch import hash_params
+    a, b = hash_params(rows, seed)
+    return hash_params_from_jax(np.asarray(a), np.asarray(b))
 
 
 def to_torch(a, device="cpu"):
