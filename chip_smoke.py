@@ -17,9 +17,16 @@ line is printed):
      in another order, held at a relative error of 1e-6; the count
      sketch's buckets are sums in another order, held at
      ``|S - S_plain| <= 1e-4 * M`` (M the bucket's absolute mass) at every
-     paper_lm leaf size with its adapted width (rows 3 and 5), n = 3001,
-     an unaligned view, 10 rows (two row groups), rows of 70,000 and
-     131,072 columns (column tiles) and w_up (5 x 4096);
+     paper_lm leaf size with its adapted width (rows 3 and 5), on both of
+     its paths.  The fold path (power-of-two widths, bound by bytes) also
+     runs at an unaligned view (n = 65,536), n = 300,000 (ragged), n =
+     5,000 below 2 * 4,096, n = 80 at 8 columns, 10 rows in one fold (n =
+     100,000), 131,072 columns and w_up (5 x 4096), and two launches on
+     one input must be bit-identical there.  The scatter path (other
+     widths, bound by its INT32 hash work) runs at n = 3001, an unaligned
+     view, 10 rows (two row groups) and rows of 70,000 columns (column
+     tiles), and its grid rule is timed both ways (one CTA per paper_lm
+     leaf, or a CTA per 4096 elements);
   4. slice 1's path: paper_lm at full width, 8 clients, 3 sim rounds of
      EF ``topk:0.05>>qsgd:8`` and ``topk:0.05>>qsgd:4@fused``, each with
      ``backend="kernel"`` and with the plain backend on the card — params,
@@ -53,14 +60,16 @@ line is printed):
      prints the device's busy share and device time by launching operator;
   6. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c), each counted from 0 just before its
-     phase; the pack and unpack kernels are on no path and count their
-     phase-3 calls;
+     phase (the count sketch's by path too, each of which must launch);
+     the pack and unpack kernels are on no path and count their phase-3
+     calls;
   7. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,8 +130,11 @@ SKETCH_TOL = 1e-4                # |S - S_plain| <= 1e-4 * bucket mass
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
                "ternarize_pack_rows", "pack_codes_words",
-               "unpack_codes_words", "count_sketch_partial",
+               "unpack_codes_words", "count_sketch_fold",
+               "count_sketch_unfold", "count_sketch_partial",
                "count_sketch_reduce")
+# count_sketch's launches by path, beside its total
+SKETCH_PATHS = ("count_sketch/fold", "count_sketch/scatter")
 # name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "threshold_sparsify": ("src/repro_torch/kernels/csrc/topk_mask.cu",
@@ -172,6 +184,28 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps):
+    """Device time of one call of ``fn`` (the sum over the kernels it
+    launches, by name), from ``torch.profiler`` over ``reps`` calls: at
+    small shapes ``cuda_ms`` times the host's launch rate instead."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            name = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
+            name = name.group(1) if name else e.key
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / reps / 1e3
+    return sum(by_kernel.values()), by_kernel
 
 
 def max_abs_err(a, b):
@@ -260,24 +294,33 @@ def sketch_mass(x, a, b, rows, cols):
 
 
 def check_count_sketch(leaves, g, dev):
-    """Kernel #6 against its plain version at every paper_lm leaf size with
-    its adapted width (rows 3 and 5), at n = 3001, an unaligned view, the
-    row-group and column-tile plans, and w_up (5 x 4096), all with the
-    same hash parameters per row count:
-    ``|S - S_plain| <= SKETCH_TOL * M + 1e-30`` elementwise, M the bucket
-    mass.  Whether two launches on one input are bit-identical is printed
-    (the order of the shared-memory atomics may vary)."""
+    """Kernel #6 against its plain version, all shapes with the same hash
+    parameters per row count: ``|S - S_plain| <= SKETCH_TOL * M + 1e-30``
+    elementwise, M the bucket mass.  The fold path (power-of-two widths)
+    runs at the paper_lm leaves of 65,536 elements and more, an unaligned
+    view, a ragged n, n below 2 * cols, 8 columns, 10 rows in one fold,
+    131,072 columns and w_up (5 x 4096); two launches on one input must be
+    bit-identical there.  The scatter path runs at the other paper_lm
+    leaves (rows 3 and 5), n = 3001, an unaligned view, 10 rows (two row
+    groups) and rows of 70,000 columns (column tiles); its relaunches are
+    compared and printed (the order of the shared-memory atomics may
+    vary).  Its grid rule is timed both ways at paper_lm's 32,768 x 3,276
+    and 16,384 x 1,638 leaves (5 rows).  Returns the fold path's w_up row
+    with both paths' rows under ``paths``."""
     from repro_torch.compress.sketch import CountSketch, hash_params
     from repro_torch.kernels import count_sketch as cs
 
-    # (n, rows[, cols]): the explicit widths take the kernel's other
-    # launch plans, rows in groups of at most 8 and rows wider than shared
-    # memory in column tiles (the spec grammar allows any sketch:r,c)
+    # (n, rows[, cols]), "u" marking an unaligned view (x[1:]); the
+    # explicit widths take the other plans (the spec grammar allows any
+    # sketch:r,c)
     shapes = ([(n, r) for r in (3, 5) for n in leaves]
-              + [(3001, 5), ("u5001", 5), (5000, 10, 512),
-                 (500_000, 2, 70_000), (600_000, 2, 131_072),
-                 (LLAMA_W_UP, 5)])
-    worst, worst_abs, relaunch_same, row = 0.0, 0.0, True, None
+              + [(3001, 5), ("u5001", 5), ("u65536", 5), (300_000, 5),
+                 (5000, 5, 4096), (80, 5), (5000, 10, 500),
+                 (100_000, 10, 4096), (500_000, 2, 70_000),
+                 (600_000, 2, 131_072), (LLAMA_W_UP, 5)])
+    rules = {(32_768, 5), (16_384, 5)}
+    worst, worst_abs, largest, paths = 0.0, 0.0, {}, {}
+    same_by_path = {"fold": True, "scatter": True}
     for n, rows, *width in shapes:
         label = n
         if isinstance(n, str):
@@ -287,49 +330,87 @@ def check_count_sketch(leaves, g, dev):
         else:
             x = torch.randn(n, generator=g, device=dev) * 2.0
         cols = width[0] if width else CountSketch(rows, 4096)._cols(n)
+        path = "fold" if cs.fold_path(cols) else "scatter"
         a, b = hash_params(rows)
+        P = cs.count_sketch_plain(x, a, b, rows, cols)
+        M = sketch_mass(x, a, b, rows, cols)
+
+        def held(S, what):
+            torch.cuda.synchronize()
+            if S.shape != P.shape or S.dtype != P.dtype:
+                fail(f"count_sketch n={label} {what}: shape/dtype "
+                     f"{tuple(S.shape)} {S.dtype} != {tuple(P.shape)} "
+                     f"{P.dtype}")
+            err = (S.double() - P.double()).abs()
+            ratio = float((err / M.clamp(min=1e-30)).max())
+            if not bool((err <= SKETCH_TOL * M + 1e-30).all()):
+                fail(f"count_sketch n={label} rows={rows} cols={cols} "
+                     f"{what}: |S - S_plain| exceeds {SKETCH_TOL} of the "
+                     f"bucket mass (worst ratio {ratio:.3e})")
+            return ratio, float(err.max())
+
         kern = lambda: cs.count_sketch_cuda(x, a, b, rows, cols)
         plain = lambda: cs.count_sketch_plain(x, a, b, rows, cols)
-        S, S2, P = kern(), kern(), plain()
-        M = sketch_mass(x, a, b, rows, cols)
-        torch.cuda.synchronize()
-        if S.shape != P.shape or S.dtype != P.dtype:
-            fail(f"count_sketch n={label}: shape/dtype {tuple(S.shape)} "
-                 f"{S.dtype} != {tuple(P.shape)} {P.dtype}")
-        err = (S.double() - P.double()).abs()
-        if not bool((err <= SKETCH_TOL * M + 1e-30).all()):
-            fail(f"count_sketch n={label} rows={rows} cols={cols}: |S - "
-                 f"S_plain| exceeds {SKETCH_TOL} of the bucket mass (worst "
-                 f"ratio {float((err / M.clamp(min=1e-30)).max()):.3e})")
-        ratio = float((err / M.clamp(min=1e-30)).max())
+        S, S2 = kern(), kern()
+        ratio, abs_err = held(S, path)
         same = torch.equal(S, S2)
-        worst, worst_abs = max(worst, ratio), max(worst_abs, float(err.max()))
-        relaunch_same = relaunch_same and same
+        if path == "fold" and not same:
+            fail(f"count_sketch n={label} rows={rows} cols={cols}: two "
+                 f"launches of the fold path differ")
+        same_by_path[path] = same_by_path[path] and same
+        worst, worst_abs = max(worst, ratio), max(worst_abs, abs_err)
         big = n > 1 << 24
         ms = cuda_ms(kern, 20 if big else 200)
         plain_ms = cuda_ms(plain, 3 if big else 20)
-        nbytes = 4 * n + 4 * rows * cols
-        n_ops = 6 * rows * n         # INT32 hash work per (row, element)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = n_ops / INT32_OPS_PER_S * 1e3
+        byte_ms = (4 * n + 4 * rows * cols) / HBM_BYTES_PER_S * 1e3
+        # the scatter path hashes every (row, element): about 6 INT32
+        # operations each; the fold path hashes nothing
+        op_ms = 6 * rows * n / INT32_OPS_PER_S * 1e3 if path == "scatter" \
+            else 0.0
         bound_ms = max(byte_ms, op_ms)
-        print(f"kernel count_sketch       n={label!s:>20} rows={rows} "
-              f"cols={cols} err/mass={ratio:.2e} relaunch bit-identical="
-              f"{'yes' if same else 'no'} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (bytes "
-              f"{byte_ms:.4f}, INT32 {op_ms:.4f}; {100 * bound_ms / ms:.0f}% "
-              f"of bound)", flush=True)
+        dev_ms, split = device_ms(kern, 10 if big else 50)
         row = dict(n=f"{label} x {rows}x{cols}", ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bytes_bound_ms=byte_ms,
-                   int32_bound_ms=op_ms,
-                   bound_by="bytes" if byte_ms >= op_ms else "operations")
-        del x, S, S2, P, M, err
+                   bound_by="bytes" if byte_ms >= op_ms else "operations",
+                   device_ms=dev_ms, device_ms_by_kernel=split)
+        bounds = f"bytes {byte_ms:.4f}"
+        if path == "scatter":
+            row["int32_bound_ms"] = op_ms
+            bounds += f", INT32 {op_ms:.4f}"
+        rule_note = ""
+        if (n, rows) in rules and path == "scatter":
+            # the grid rule: a CTA takes at least 4096 elements (built in),
+            # or max(4 rows cols, 16384), which puts a paper_lm leaf on one
+            # CTA; device time, as the events time the host here
+            one = max(4 * rows * cols, 16384)
+            for rule, span in (("one_cta", one), ("per_4096", 4096)):
+                k = lambda: cs.count_sketch_cuda(x, a, b, rows, cols,
+                                                 min_span=span)
+                held(k(), f"grid rule {rule}")
+                row[f"device_ms_{rule}"] = device_ms(k, 50)[0]
+            rule_note = (f"; grid rule device_ms: one CTA per {one} "
+                         f"elements {row['device_ms_one_cta']:.4f} "
+                         f"({-(-n // one)} CTAs), a CTA per 4096 elements "
+                         f"{row['device_ms_per_4096']:.4f} "
+                         f"({-(-n // 4096)} CTAs)")
+        print(f"kernel count_sketch/{path:7s} n={label!s:>20} rows={rows} "
+              f"cols={cols} err/mass={ratio:.2e} relaunch bit-identical="
+              f"{'yes' if same else 'no'} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} device_ms={dev_ms:.4f} ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f") bound_ms={bound_ms:.4f} ({bounds}; "
+              f"{100 * bound_ms / ms:.0f}% of bound){rule_note}", flush=True)
+        if n >= largest.get(path, 0):        # each path's largest shape
+            largest[path], paths[path] = n, row
+        del x, S, S2, P, M
     print(f"count_sketch: {len(shapes)} shapes within {SKETCH_TOL} of the "
           f"bucket mass (worst ratio {worst:.3e}); two launches on one "
-          f"input bit-identical at every shape: "
-          f"{'yes' if relaunch_same else 'no'}", flush=True)
-    return dict(row, max_abs_err=worst_abs, sketch_err_over_mass=worst,
-                relaunch_bit_identical=relaunch_same)
+          f"input bit-identical at every fold-path shape: yes, at every "
+          f"scatter-path shape: {'yes' if same_by_path['scatter'] else 'no'}",
+          flush=True)
+    return dict(paths["fold"], max_abs_err=worst_abs,
+                sketch_err_over_mass=worst,
+                relaunch_bit_identical=same_by_path, paths=paths)
 
 
 def check_one(name, n, bits, g, dev):
@@ -881,9 +962,10 @@ def print_profile(prof, wall_s, what, top=10):
               f"{e.key[:90]} (port kernel)")
 
 
-def kernel_rows(kern, launches):
+def kernel_rows(kern, launches, paths):
     """The ``kernels`` JSON rows: phase 3's measurements, the main paths'
-    launch counts (the off-path kernels count their phase-3 calls)."""
+    launch counts (the off-path kernels count their phase-3 calls;
+    ``paths``, the count sketch's by path)."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         k = kern[name]
@@ -894,10 +976,12 @@ def kernel_rows(kern, launches):
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": None, "n": k["n"]}
         for extra in ("psum_rel_err", "sketch_err_over_mass",
-                      "relaunch_bit_identical", "bytes_bound_ms",
-                      "int32_bound_ms"):
+                      "relaunch_bit_identical", "bytes_bound_ms", "paths"):
             if extra in k:
                 row[extra] = k[extra]
+        if name == "count_sketch":
+            row["launches_by_path"] = {p.split("/")[1]: paths[p]
+                                       for p in SKETCH_PATHS}
         if name in OFF_PATH:
             row["launches_from"] = "phase 3 (no path runs this kernel)"
         rows.append(row)
@@ -942,6 +1026,7 @@ def main():
     # the main paths' launch counts: every counter at 0 just before each
     # path's phase, read just after (the comparisons above do not count)
     launches = {name: 0 for name in KERNELS}
+    paths = {name: 0 for name in SKETCH_PATHS}
     for phase in (paper_lm_phase, stc_phase, sketch_phase,
                   plain_stages_phase,
                   lambda d: llama_phase(d, dict(uplink_compressor=CHAINS[1]),
@@ -957,12 +1042,19 @@ def main():
         phase(dev)
         for name, count in launch_counts().items():
             launches[name] += count
+        for name in SKETCH_PATHS:
+            paths[name] += build.LAUNCHES[name]
     for name in KERNELS:
         if name not in OFF_PATH and launches[name] <= 0:
             fail(f"kernel {name} was never launched on a main path")
-    print(f"main-path launches {launches}", flush=True)
+    for name in SKETCH_PATHS:
+        if paths[name] <= 0:
+            fail(f"{name} was never launched on a main path")
+    print(f"main-path launches {launches}; count_sketch by path {paths}",
+          flush=True)
 
-    print(json.dumps({"kernels": kernel_rows(kern, launches)}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(kern, launches, paths)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,9 +16,10 @@ middle value).  Encode and decode walk the flat index in chunks of
 ``CHUNK`` coordinates, so an llama-sized leaf never materialises its
 (rows, n) buckets at once; the result is the same element for element.
 
-``backend="kernel"``: the scatter runs in the ``count_sketch`` CUDA kernel
-(``kernels/count_sketch.py``); its bucket sums are added in another order,
-so S agrees with the plain path to a bounded number of ULPs (DESIGN.md §6).
+``backend="kernel"``: the sketch runs in the ``count_sketch`` CUDA kernel
+(``kernels/count_sketch.py``: a fold of x at power-of-two widths, a
+scatter otherwise); its bucket sums are added in another order, so S
+agrees with the plain path to a bounded number of ULPs (DESIGN.md §6).
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """The count-sketch slice of the port against the reference: the hash, the
-plain sketch against the reference's oracle and its Pallas kernel in
-interpret mode, the midpoint-median unsketch, and one EF
+identity the kernel's fold path rests on (at a power-of-two width a
+bucket and its sign depend only on ``i mod 2*cols``), the plain sketch
+against the reference's oracle and its Pallas kernel in interpret mode,
+the midpoint-median unsketch, and one EF
 ``sketch>>qsgd:8`` sim round through the port's engine against the
 reference engine.  Inputs come from numpy; the reference's hash parameters
 are monkeypatched into the port (``jax_hash_params``), and its QSGD
@@ -88,6 +90,67 @@ def test_bucket_and_sign_bit_equal(cols):
         h_t, s_t = sk_t.bucket_and_sign(torch.from_numpy(i), a_t, b_t, cols)
         np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_j))
         np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+_FOLD_INDICES = 1 << 20                  # 4 periods of the widest width
+_jax_sketch = jax.jit(sk_jax.sketch, static_argnums=(1, 2))
+
+
+@pytest.mark.parametrize("rows", [3, 5])
+@pytest.mark.parametrize("cols", [8, 512, 4096, 131072])
+def test_fold_identity_against_reference_hash(cols, rows):
+    """At a power-of-two width, the reference's bucket and sign repeat with
+    period 2*cols, every bucket has exactly two preimages in [0, 2*cols)
+    with opposite signs, :func:`count_sketch.preimages` returns them, and
+    folding x into rows of 2*cols then gathering ``y[p+] - y[p-]`` gives
+    the reference's sketch within 1e-5 of each bucket's mass."""
+    P = 2 * cols
+    a_j, b_j = sk_jax.hash_params(rows)
+    a_t, b_t = jax_hash_params(rows)
+    # one index vector of one length for every width, so the reference's
+    # eager ops compile once: residues t mod P shifted by 0, 1, 7 and the
+    # last whole number of periods below 2^31
+    t = np.arange(_FOLD_INDICES, dtype=np.int64)
+    periods = np.array([0, 1, 7, (1 << 31) // P - 1], dtype=np.int64)
+    i = t % P + periods[t // (_FOLD_INDICES // 4)] * P
+    h, s = (np.asarray(v) for v in sk_jax.bucket_and_sign(
+        jnp.asarray(i.astype(np.int32)), a_j, b_j, cols))
+    h0, s0 = h[:, :P], s[:, :P]
+    np.testing.assert_array_equal(h, h0[:, t % P])
+    np.testing.assert_array_equal(s, s0[:, t % P])
+    p_plus, p_minus = (t.numpy() for t in count_sketch.preimages(a_t, b_t,
+                                                                 cols))
+    for j in range(rows):
+        assert (np.bincount(h0[j], minlength=cols) == 2).all()
+        np.testing.assert_array_equal(
+            np.bincount(h0[j], weights=s0[j], minlength=cols), 0.0)
+        np.testing.assert_array_equal(h0[j][p_plus[j]], np.arange(cols))
+        np.testing.assert_array_equal(h0[j][p_minus[j]], np.arange(cols))
+        assert (s0[j][p_plus[j]] == 1.0).all()
+        assert (s0[j][p_minus[j]] == -1.0).all()
+    n = 2 * P + P // 2 + 3               # two full rows and a ragged one
+    x = _x(n, cols + rows)
+    y = np.zeros(3 * P, np.float32)
+    y[:n] = x
+    y = y.reshape(3, P).sum(axis=0, dtype=np.float32)
+    S = y[p_plus] - y[p_minus]
+    _within_mass(S, _jax_sketch(jnp.asarray(x), rows, cols),
+                 _mass(x, rows, cols), f"fold cols={cols}")
+
+
+def test_fold_path_takes_power_of_two_widths_and_odd_multipliers():
+    """The adapted width 3276 takes the scatter path; the fold path's
+    helpers refuse it and an even multiplier."""
+    assert count_sketch.fold_path(4096) and count_sketch.fold_path(8)
+    assert not count_sketch.fold_path(3276)
+    assert not count_sketch.fold_path(3 * 1024)
+    a, b = jax_hash_params(5)
+    with pytest.raises(ValueError, match="power-of-two"):
+        count_sketch.preimages(a, b, 3276)
+    with pytest.raises(ValueError, match="odd"):
+        count_sketch.inverses([int(a[0]), 6])
+    assert all(int(t) * v % (1 << 32) == 1
+               for t, v in zip(a, count_sketch.inverses(a)))
 
 
 @pytest.mark.parametrize("n,rows,cols", [(1024, 3, 256), (4096, 5, 512)])
