@@ -57,16 +57,40 @@ line is printed):
   5c. the same of EF ``sketch>>qsgd:8``.  Phases 5-5c need a finite loss
      and the ledger equal to its static terms, and print the peak memory.
      The kernel runs of phases 4-5c go under ``torch.profiler``, which
-     prints the device's busy share and device time by launching operator;
-  6. the ``kernels`` JSON line: launch counts are those of the main-path
-     phases (4, 4b, 4c, 4d, 5, 5b, 5c), each counted from 0 just before its
-     phase (the count sketch's by path too, each of which must launch);
-     the pack and unpack kernels are on no path and count their phase-3
-     calls;
-  7. last line: ``{"ok": true, "device": {...}}``.
+     prints the device's busy share and device time by launching operator
+     (the plain runs do not: nothing reads their profiles);
+  6. slice 5's path, the population round: paper_lm over a streaming
+     ``ClientPopulation`` of 100,000 and of 1,000,000 clients (stride
+     cohorts of 16, a 64-slot residual store, EF ``topk:0.05>>qsgd:8``,
+     seq 48, batch 4, E=2, 4 rounds) on both backends: the store's bytes
+     equal at both sizes, every round's batch ids unique and the ones the
+     engine committed, and the backends bit-identical in params, slab,
+     client and stamp;
+  6b. the eviction leg: paper_lm, 192 clients, cohorts of 24, a 32-slot
+     store under ``drop`` and under ``sketch`` (a 5 x 16384 tail), 6
+     rounds on both backends: the store's ``stats()`` equal to the hits,
+     misses and evictions its slots show, the tail non-zero once round 1
+     has evicted and its norm never rising across a gather, the backends
+     bit-identical under ``drop`` and their losses within 1e-3 (4c's
+     tolerance) under ``sketch``;
+  6c. llama3_2_1b at full width and depth over 1,000,000 clients, cohorts
+     of 2, a 2-slot store under ``sketch``, EF ``topk:0.05>>qsgd:4@fused``,
+     3 rounds through the kernels: finite losses, every round after the
+     first evicting 2 rows and recovering 2, and the peak memory under
+     76 GiB.  Phases 6-6c print each run's round times; one kernel run
+     a phase (6: 1,000,000 clients, 6b: ``sketch``, 6c) profiles its last
+     round for the device busy share, top device ops and the store's
+     share of device time;
+  7. the ``kernels`` JSON line: launch counts are those of the main-path
+     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c), each counted from 0
+     just before its phase (the count sketch's by path too, each of which
+     must launch); the pack and unpack kernels are on no path and count
+     their phase-3 calls;
+  8. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
+import contextlib
 import json
 import os
 import re
@@ -126,6 +150,16 @@ PLAIN_STAGES = (("EF sbc 0.01", dict(uplink_compressor="sbc",
                 ("uveq", dict(uplink_compressor="uveq")))
 LLAMA_SKETCH = dict(uplink_compressor="sketch>>qsgd:8")
 SKETCH_TOL = 1e-4                # |S - S_plain| <= 1e-4 * bucket mass
+# slice 5's path: the sync leg of the reference's bench_scale
+# (benchmarks/run.py:445): population sizes, cohort, store slots, rounds
+POP_SIZES, POP_COHORT, POP_CAPACITY, POP_ROUNDS = (100_000, 1_000_000), 16, \
+    64, 4
+POP_SEQ, POP_BATCH, POP_SPEC = 48, 4, "topk:0.05>>qsgd:8"
+# the eviction leg: (clients, cohort, capacity, rounds)
+EVICT_POP = (192, 24, 32, 6)
+LLAMA_POP = dict(n_clients=1_000_000, cohort=2, capacity=2,
+                 eviction="sketch", spec="topk:0.05>>qsgd:4@fused", rounds=3)
+LLAMA_PEAK_GIB = 76.0
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -524,8 +558,40 @@ def fed_data(model, clients, seq, batch):
                          batch_per_client=batch, heterogeneity=1.5)
 
 
+def watch_peak(program, log=None):
+    """Wraps the round program's hops to note in ``log`` the hop in which
+    the device's peak allocated memory (a running maximum, never reset
+    here) last rose, and the peak it reached there (GiB)."""
+    log = {} if log is None else log
+
+    def wrap(name, fn):
+        def hop(ctx):
+            before = torch.cuda.max_memory_allocated()
+            out = fn(ctx)
+            after = torch.cuda.max_memory_allocated()
+            if after > before:
+                log.update(hop=name, gib=after / 2**30)
+            return out
+        return hop
+    program.hops = tuple((n, wrap(n, f)) for n, f in program.hops)
+    return log
+
+
+# the kernel runs go under the profiler; the plain runs, whose profiles
+# nothing reads, do not (parsing a trace takes longer than the run)
+PROFILED = {"kernel": " under the profiler", "jax": ""}
+
+
+def profiled_if(on):
+    if not on:
+        return contextlib.nullcontext()
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
 def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
-            local_steps, local_lr):
+            local_steps, local_lr, peak_log=None):
     from repro_torch.core.engine import run_rounds
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
@@ -534,6 +600,8 @@ def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
     fl = FLConfig(backend=backend, local_steps=local_steps,
                   local_lr=local_lr, **fl_kw)
     sim = make_sim_step(model, fl, clients, chunk=seq, device=dev)
+    if peak_log is not None:
+        watch_peak(sim.engine.round_fn, peak_log)
     data = fed_data(model, clients, seq, batch)
     state = sim.init_fn(0)
     state, ms = run_rounds(sim.engine, state,
@@ -594,9 +662,7 @@ def paper_lm_phase(dev):
         for backend in ("kernel", "jax"):
             before = launch_counts()
             t0 = time.perf_counter()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with profiled_if(backend == "kernel") as prof:
                 sim, state, ms = run_sim(model, dict(uplink_compressor=spec),
                                          backend,
                                          PAPER_LM_CLIENTS, PAPER_LM_SEQ,
@@ -613,7 +679,7 @@ def paper_lm_phase(dev):
             print(f"paper_lm {spec} backend={backend}: loss per round "
                   f"{[round(v, 6) for v in losses]} "
                   f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
-                  f"launches {ran} ({secs:.2f}s under the profiler)",
+                  f"launches {ran} ({secs:.2f}s{PROFILED[backend]})",
                   flush=True)
             if backend == "kernel":
                 print_profile(prof, secs, f"paper_lm {spec}", top=6)
@@ -652,12 +718,11 @@ def llama_phase(dev, fl_kw, expect, what):
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with profiled_if(True) as prof:
+        peak_log = {}
         sim, state, ms = run_sim(model, fl_kw, "kernel", LLAMA_CLIENTS,
                                  LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS, dev, 1,
-                                 0.05)
+                                 0.05, peak_log=peak_log)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     check_launches(ran, expect, f"llama3_2_1b {what}")
@@ -674,7 +739,8 @@ def llama_phase(dev, fl_kw, expect, what):
           f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
           f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round, "
           f"ledger == static terms, launches {ran}, peak memory {peak:.1f} "
-          f"GiB, {secs:.2f}s under the profiler", flush=True)
+          f"GiB (last raised in the {peak_log.get('hop')} hop), {secs:.2f}s "
+          f"under the profiler", flush=True)
     print_profile(prof, secs, f"llama3_2_1b {what}")
     del sim, state, ms
     torch.cuda.empty_cache()
@@ -769,9 +835,7 @@ def stc_phase(dev):
         for backend in ("kernel", "jax"):
             before = launch_counts()
             t0 = time.perf_counter()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with profiled_if(backend == "kernel") as prof:
                 sim, state, ms = run_sim(model, fl_kw, backend,
                                          PAPER_LM_CLIENTS, PAPER_LM_SEQ,
                                          PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
@@ -788,7 +852,7 @@ def stc_phase(dev):
                   f"{[round(v, 6) for v in losses]} "
                   f"up={float(ms['ledger'].uplink_wire[0]):,.0f} "
                   f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round "
-                  f"launches {ran} ({secs:.2f}s under the profiler)",
+                  f"launches {ran} ({secs:.2f}s{PROFILED[backend]})",
                   flush=True)
             if backend == "kernel":
                 print_profile(prof, secs, f"paper_lm {label}", top=6)
@@ -875,9 +939,7 @@ def sketch_phase(dev):
         for backend in ("kernel", "jax"):
             before = launch_counts()
             t0 = time.perf_counter()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with profiled_if(backend == "kernel") as prof:
                 sim, state, ms = run_sim(model, fl_kw, backend,
                                          PAPER_LM_CLIENTS, PAPER_LM_SEQ,
                                          PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
@@ -893,7 +955,7 @@ def sketch_phase(dev):
             print(f"paper_lm {label} backend={backend}: loss per round "
                   f"{[round(v, 6) for v in loss]} "
                   f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
-                  f"launches {ran} ({secs:.2f}s under the profiler)",
+                  f"launches {ran} ({secs:.2f}s{PROFILED[backend]})",
                   flush=True)
             if backend == "kernel":
                 print_profile(prof, secs, f"paper_lm {label}", top=6)
@@ -934,6 +996,333 @@ def plain_stages_phase(dev):
               f"B/round, ledger == static terms ({secs:.2f}s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 6-6c: the population round
+# ---------------------------------------------------------------------------
+
+STORE_RANGES = ("store.gather", "store.scatter")
+
+
+def annotate_store(store):
+    """Wraps the store's gather and scatter in profiler ranges, so that the
+    profile reads their device time (the count-sketch tail's, under
+    ``sketch``)."""
+    for name in ("gather", "scatter"):
+        def wrapped(*args, _fn=getattr(store, name), _range=f"store.{name}"):
+            with torch.profiler.record_function(_range):
+                return _fn(*args)
+        setattr(store, name, wrapped)
+
+
+def tail_norms(state):
+    from repro_torch.compress.residual_store import _leaves
+    return [float(t.norm()) for t in _leaves(state.get("tail", ()))
+            if t.numel()]
+
+
+def run_population(model, fl_kw, backend, pop, seq, batch, rounds, dev,
+                   local_steps, local_lr, check_gathers=False,
+                   profiled=False):
+    """``rounds`` rounds of ``make_round_engine(..., population=pop)`` on
+    ``cohort_data_fn``'s batches.  Records per round the batch's ids, the
+    store's ``stats()`` and resident clients before the round, the
+    resident clients and tail norms after it, its wall time (host clock,
+    synchronised), and (``check_gathers``) the tail norms before and after
+    a gather of the round's ids.  With ``profiled`` the last round runs
+    under ``torch.profiler`` (a steady window: a whole run's trace takes
+    minutes to summarise).  Returns (engine, state, metrics with the
+    ledger stacked, records, the profiler or None)."""
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.types import CommLedger, FLConfig
+    from repro_torch.data.pipeline import cohort_data_fn
+    from repro_torch.data.synthetic import FedDataConfig
+
+    fl = FLConfig(backend=backend, local_steps=local_steps,
+                  local_lr=local_lr, **fl_kw)
+    engine = make_round_engine(model, fl, Topology.sim(pop.n_clients),
+                               chunk=seq, device=dev, population=pop)
+    engine.aux["peak_log"] = watch_peak(engine.round_fn)
+    store = engine.aux["store"]
+    if profiled:
+        annotate_store(store)
+    data_fn = cohort_data_fn(pop, FedDataConfig(
+        vocab_size=model.cfg.vocab_size, num_clients=pop.n_clients,
+        seq_len=seq, batch_per_client=batch, heterogeneity=2.0), dev)
+    state = engine.init_fn(0)
+    records, metrics, prof = [], [], None
+    for r in range(rounds):
+        b = data_fn(r)
+        comm = state.comm_state
+        rec = {"ids": b["ids"].tolist(),
+               "client_before": comm["client"].tolist(),
+               "stats": {k: float(v) for k, v in
+                         store.stats(comm, b["ids"]).items()}}
+        if check_gathers:
+            _, gathered = store.gather(comm, b["ids"])
+            rec["gather_norms"] = (tail_norms(comm), tail_norms(gathered))
+        torch.cuda.synchronize()
+        if profiled and r == rounds - 1:
+            prof = profiled_if(True)
+            prof.start()
+        t0 = time.perf_counter()
+        state, m = engine.round_fn(state, b)
+        torch.cuda.synchronize()
+        rec["secs"] = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        rec["client_after"] = state.comm_state["client"].tolist()
+        rec["tail_norms"] = tail_norms(state.comm_state)
+        records.append(rec)
+        metrics.append(m)
+    ms = {k: torch.stack([m[k] for m in metrics])
+          for k in metrics[0] if k != "ledger"}
+    ms["ledger"] = CommLedger(**{
+        f: torch.stack([m["ledger"].fields()[f] for m in metrics])
+        for f in metrics[0]["ledger"].fields()})
+    return engine, state, ms, records, prof
+
+
+def round_times(records):
+    return "round times " + ", ".join(f"{rec['secs']:.2f}" for rec in records) \
+        + " s"
+
+
+def check_store_records(records, pop, what):
+    """Every round's ids unique and of the cohort's size; ``stats()`` equal
+    to what the resident clients before and after the round show: hits
+    (ids already resident), misses, evictions (residents that left) and,
+    under ``sketch``, every miss recovered."""
+    for r, rec in enumerate(records):
+        ids, before = rec["ids"], set(rec["client_before"]) - {-1}
+        after = set(rec["client_after"]) - {-1}
+        if len(set(ids)) != pop.cohort:
+            fail(f"{what} round {r}: cohort ids not unique {ids}")
+        if not set(ids) <= after:
+            fail(f"{what} round {r}: the store did not commit the batch's "
+                 f"ids {ids}")
+        hits = len(set(ids) & before)
+        want = {"hits": hits, "misses": pop.cohort - hits,
+                "evictions": len(before - after),
+                "sketch_recovered": (pop.cohort - hits
+                                     if pop.eviction == "sketch" else 0)}
+        if rec["stats"] != {k: float(v) for k, v in want.items()}:
+            fail(f"{what} round {r}: stats() {rec['stats']} != the slots' "
+                 f"{want}")
+
+
+def check_finite(ms, state, what):
+    losses = [float(v) for v in ms["loss"]]
+    if not all(v == v and abs(v) < 1e6 for v in losses):
+        fail(f"{what}: loss not finite {losses}")
+    for t in _tensors(state.params):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{what}: non-finite parameters")
+    return losses
+
+
+def population_phase(dev):
+    """Slice 5's path on paper_lm, the sync leg of bench_scale: the same
+    store bytes at both population sizes, the batch's ids committed, and
+    the backends bit-identical."""
+    from repro_torch.compress.residual_store import _leaves, store_nbytes
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    want_bytes = POP_CAPACITY * (4 * model.param_count() + 8) + 4
+    nbytes = {}
+    for N in POP_SIZES:
+        runs = {}
+        for backend in ("kernel", "jax"):
+            pop = ClientPopulation(n_clients=N, cohort=POP_COHORT,
+                                   capacity=POP_CAPACITY, sampler="stride")
+            before = launch_counts()
+            t0 = time.perf_counter()
+            engine, state, ms, recs, prof = run_population(
+                model, dict(uplink_compressor=POP_SPEC), backend, pop,
+                POP_SEQ, POP_BATCH, POP_ROUNDS, dev, 2, 0.2,
+                profiled=backend == "kernel" and N == POP_SIZES[-1])
+            secs = time.perf_counter() - t0
+            what = f"paper_lm population {N:,} backend={backend}"
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, ("threshold_sparsify", "qsgd_quantize")
+                           if backend == "kernel" else (), what)
+            losses = check_finite(ms, state, what)
+            check_ledger(engine, ms, POP_COHORT, what)
+            check_store_records(recs, pop, what)
+            client = state.comm_state["client"]
+            last = client[state.comm_state["stamp"] == POP_ROUNDS - 1]
+            if sorted(last.tolist()) != sorted(recs[-1]["ids"]):
+                fail(f"{what}: the last round's committed ids "
+                     f"{sorted(last.tolist())} are not its batch's")
+            nbytes[N, backend] = store_nbytes(state.comm_state)
+            print(f"{what}: population={N:,} cohort={pop.cohort} "
+                  f"capacity={pop.capacity} store="
+                  f"{nbytes[N, backend] / 1e6:.1f}MB "
+                  f"({nbytes[N, backend]:,} B); loss per round "
+                  f"{[round(v, 6) for v in losses]}; ids unique and "
+                  f"committed, stats == slots; launches {ran}; "
+                  f"{round_times(recs)} ({secs:.2f}s in all)", flush=True)
+            if prof is not None:
+                print_profile(prof, recs[-1]["secs"],
+                              f"{what}, last round", top=6)
+            runs[backend] = (state, ms)
+        (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
+        pairs = (list(zip(_tensors(sk.params), _tensors(sp.params)))
+                 + list(zip(_leaves(sk.comm_state), _leaves(sp.comm_state)))
+                 + [(mk["loss"], mp["loss"])])
+        for a, b in pairs:
+            if not torch.equal(a, b):
+                fail(f"paper_lm population {N:,}: kernel backend differs "
+                     f"from the plain backend")
+        print(f"paper_lm population {N:,}: kernel and plain backends "
+              f"bit-identical ({len(pairs)} tensors: params, slab, client, "
+              f"stamp, clock, loss)", flush=True)
+    if set(nbytes.values()) != {want_bytes}:
+        fail(f"store bytes {nbytes} differ across population sizes or from "
+             f"{want_bytes:,}")
+    print(f"paper_lm population: store bytes {want_bytes:,} "
+          f"({want_bytes / 1e6:.1f}MB) at {POP_SIZES[0]:,} and "
+          f"{POP_SIZES[1]:,} clients, equal", flush=True)
+
+
+def eviction_phase(dev):
+    """The eviction leg on paper_lm (E=1): stats() against the slots, the
+    tail non-zero once round 1 has evicted and its norm never rising
+    across a gather (checked on the plain run, outside the profile), the
+    backends bit-identical under drop and within 4c's 1e-3 under sketch."""
+    from repro_torch.compress.residual_store import _leaves
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    N, M, S, R = EVICT_POP
+    for eviction in ("drop", "sketch"):
+        runs = {}
+        for backend in ("kernel", "jax"):
+            pop = ClientPopulation(n_clients=N, cohort=M, capacity=S,
+                                   eviction=eviction)
+            what = f"paper_lm eviction={eviction} backend={backend}"
+            before = launch_counts()
+            t0 = time.perf_counter()
+            engine, state, ms, recs, prof = run_population(
+                model, dict(uplink_compressor=POP_SPEC), backend, pop,
+                PAPER_LM_SEQ, PAPER_LM_BATCH, R, dev, 1, 0.2,
+                check_gathers=backend == "jax" and eviction == "sketch",
+                profiled=backend == "kernel" and eviction == "sketch")
+            secs = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, ("threshold_sparsify", "qsgd_quantize")
+                           if backend == "kernel" else (), what)
+            losses = check_finite(ms, state, what)
+            check_ledger(engine, ms, M, what)
+            check_store_records(recs, pop, what)
+            evicted = 0
+            for r, rec in enumerate(recs):
+                evicted += rec["stats"]["evictions"]
+                if eviction == "sketch" and evicted and not all(
+                        v > 0 for v in rec["tail_norms"]):
+                    fail(f"{what} round {r}: a tail is zero after "
+                         f"{evicted:.0f} evictions")
+                if "gather_norms" in rec:
+                    b4, aft = rec["gather_norms"]
+                    if any(a > b * (1 + 1e-6) for a, b in zip(aft, b4)):
+                        fail(f"{what} round {r}: a tail's norm rose across "
+                             f"the gather ({b4} -> {aft})")
+            if evicted < R:
+                fail(f"{what}: only {evicted:.0f} evictions in {R} rounds")
+            print(f"{what}: {N} clients, cohort {M}, capacity {S}, "
+                  f"{evicted:.0f} evictions in {R} rounds, stats == slots"
+                  + (f", tail norms after the last round "
+                     f"{[round(v, 4) for v in recs[-1]['tail_norms'][:3]]}"
+                     f"... non-zero, never rising across a gather"
+                     if eviction == "sketch" else "")
+                  + f"; loss per round {[round(v, 6) for v in losses]}; "
+                  f"launches {ran}; {round_times(recs)} ({secs:.2f}s in "
+                  f"all)", flush=True)
+            if prof is not None:
+                print_profile(prof, recs[-1]["secs"],
+                              f"{what}, last round", top=6)
+            runs[backend] = (state, ms)
+        (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
+        for k in ("client", "stamp", "clock"):
+            if not torch.equal(sk.comm_state[k], sp.comm_state[k]):
+                fail(f"paper_lm eviction={eviction}: store {k} differs "
+                     f"between the backends")
+        if eviction == "drop":
+            for a, b in (list(zip(_tensors(sk.params), _tensors(sp.params)))
+                         + list(zip(_leaves(sk.comm_state),
+                                    _leaves(sp.comm_state)))):
+                if not torch.equal(a, b):
+                    fail("paper_lm eviction=drop: kernel backend differs "
+                         "from the plain backend")
+        gap = float(((mk["loss"] - mp["loss"]).abs() / mp["loss"].abs())
+                    .max())
+        if not gap <= 1e-3:
+            fail(f"paper_lm eviction={eviction}: losses differ by {gap:.3e} "
+                 f"between the backends, above 1e-3")
+        print(f"paper_lm eviction={eviction}: client, stamp and clock "
+              f"identical on both backends"
+              + (", params and slab bit-identical" if eviction == "drop"
+                 else "")
+              + f"; losses' largest relative gap {gap:.3e}", flush=True)
+
+
+def llama_population_phase(dev):
+    """llama3_2_1b at full width and depth over a million clients with a
+    two-slot sketch store: finite losses, 2 evictions and 2 recoveries in
+    every round after the first, and the peak memory."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    model = Model(cfg)
+    kw = dict(LLAMA_POP)
+    spec, rounds = kw.pop("spec"), kw.pop("rounds")
+    pop = ClientPopulation(**kw)
+    what = (f"llama3_2_1b population={pop.n_clients:,} cohort={pop.cohort} "
+            f"capacity={pop.capacity} eviction={pop.eviction} "
+            f"({pop.tail_rows} x {pop.tail_cols} tail) EF {spec}")
+    print(f"{what}: {model.param_count():,} params, {cfg.num_layers} layers "
+          f"(no depth cut), seq {LLAMA_SEQ}, batch {LLAMA_BATCH}, E=1, "
+          f"{rounds} rounds, backend=kernel", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    engine, state, ms, recs, prof = run_population(
+        model, dict(uplink_compressor=spec), "kernel", pop, LLAMA_SEQ,
+        LLAMA_BATCH, rounds, dev, 1, 0.05, profiled=True)
+    secs = time.perf_counter() - t0
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    check_launches(ran, ("threshold_sparsify", "qsgd_pack"), what)
+    losses = check_finite(ms, state, what)
+    check_ledger(engine, ms, pop.cohort, what)
+    check_store_records(recs, pop, what)
+    for r, rec in enumerate(recs[1:], 1):
+        st = rec["stats"]
+        if st["evictions"] != 2 or st["sketch_recovered"] != 2:
+            fail(f"{what} round {r}: stats {st}, expected 2 evictions and "
+                 f"2 recoveries")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if peak >= LLAMA_PEAK_GIB:
+        fail(f"{what}: peak memory {peak:.1f} GiB, not under "
+             f"{LLAMA_PEAK_GIB} GiB")
+    print(f"{what}: loss per round {[round(v, 6) for v in losses]}, ledger "
+          f"== static terms, 2 evictions and 2 recoveries in rounds 1-"
+          f"{rounds - 1}, tail norms after the last round "
+          f"{[round(v, 4) for v in recs[-1]['tail_norms'][:3]]}..., "
+          f"launches {ran}, peak memory {peak:.1f} GiB "
+          f"(limit {LLAMA_PEAK_GIB:.0f}; last raised in the "
+          f"{engine.aux['peak_log'].get('hop')} hop); {round_times(recs)} "
+          f"({secs:.2f}s in all)", flush=True)
+    print_profile(prof, recs[-1]["secs"], f"{what}, last round")
+    del engine, state, ms
+    torch.cuda.empty_cache()
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -943,8 +1332,11 @@ def print_profile(prof, wall_s, what, top=10):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
     events = prof.key_averages()
+    # the store's profiler ranges also appear as GPU-side spans (idle gaps
+    # included): not device work
     on_device = [e for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.key not in STORE_RANGES]
     busy_ms = sum(dev_us(e) for e in on_device) / 1e3
     print(f"{what} profile: device busy {busy_ms:.1f} ms of "
           f"{wall_s * 1e3:.1f} ms wall ({100 * busy_ms / (wall_s * 1e3):.1f}%)"
@@ -960,6 +1352,14 @@ def print_profile(prof, wall_s, what, top=10):
     for e in ours:
         print(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d} launches  "
               f"{e.key[:90]} (port kernel)")
+    for e in events:
+        if e.key in STORE_RANGES and \
+                e.device_type != torch.autograd.DeviceType.CUDA:
+            ms = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0)) / 1e3
+            print(f"  {ms:9.2f} ms  {e.count:6d} calls   {e.key} (device "
+                  f"time under the range, {100 * ms / max(busy_ms, 1e-9):.1f}"
+                  f"% of the device time)")
 
 
 def kernel_rows(kern, launches, paths):
@@ -1019,9 +1419,12 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     kern = check_kernels(dev)
     stc_first_rounds(dev)
     sketch_first_rounds(dev)
+    print(f"kernel checks and round-1 comparisons done in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     # the main paths' launch counts: every counter at 0 just before each
     # path's phase, read just after (the comparisons above do not count)
@@ -1037,9 +1440,12 @@ def main():
                                         "EF stc:0.1@fused + lfl8"),
                   lambda d: llama_phase(d, LLAMA_SKETCH,
                                         ("count_sketch", "qsgd_quantize"),
-                                        "EF sketch>>qsgd:8")):
+                                        "EF sketch>>qsgd:8"),
+                  population_phase, eviction_phase, llama_population_phase):
         build.LAUNCHES.clear()
+        t0 = time.perf_counter()
         phase(dev)
+        print(f"phase done in {time.perf_counter() - t0:.1f}s", flush=True)
         for name, count in launch_counts().items():
             launches[name] += count
         for name in SKETCH_PATHS:

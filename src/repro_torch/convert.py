@@ -11,7 +11,10 @@ accumulators, the warm-up round counter) across: it fills the port's state
 structure with the reference's arrays, given in ``jax.tree.leaves`` order
 (tuples in order, dict keys sorted).  ``hash_params_from_jax`` takes the
 reference's count-sketch hash parameters (uint32 arrays) in the port's
-int64 form.  No function here imports JAX.
+int64 form.  ``store_from_jax`` / ``store_to_jax`` carry a
+``ResidualStore`` state (slab, client, stamp, clock and the sketch tail;
+any dict / tuple pytree of arrays) across unchanged in structure.  No
+function here imports JAX.
 """
 from __future__ import annotations
 
@@ -94,3 +97,24 @@ def hash_params_from_jax(a, b):
     (a, b): int64 CPU tensors holding the uint32 values."""
     return tuple(torch.from_numpy(np.asarray(v, dtype=np.uint32)
                                   .astype(np.int64)) for v in (a, b))
+
+
+def store_from_jax(state, device="cpu"):
+    """The reference's store state, its arrays as numpy (``jax.tree.map(
+    np.asarray, state)``), as the port's: the same dicts and tuples, each
+    array a tensor on ``device``."""
+    if isinstance(state, dict):
+        return {k: store_from_jax(v, device) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return tuple(store_from_jax(v, device) for v in state)
+    return _to_tensor(state).to(device)
+
+
+def store_to_jax(state):
+    """The port's store state as the reference's, with numpy arrays (the
+    inverse of :func:`store_from_jax`)."""
+    if isinstance(state, dict):
+        return {k: store_to_jax(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return tuple(store_to_jax(v) for v in state)
+    return _to_numpy(state)

@@ -20,8 +20,12 @@ every leaf with the same downlink key — so a test that injects
 
 Only the ``sim`` topology with fedavg / fedsgd / fedprox, EF or DGC
 uplinks, a downlink compressor roundtripped per leaf (e.g. ``lfl8``),
-``selection="all"`` and the ``fedavg`` server step is ported; every other knob raises
-``NotImplementedError`` naming the reference module that has it.
+``selection="all"`` and the ``fedavg`` server step is ported, densely or
+over a streaming :class:`~repro_torch.core.population.ClientPopulation`
+(``population=``: a ``cohort`` hop after ``rng``, the dispatch width set
+to the cohort, and the per-client pipeline state in a ``ResidualStore``);
+every other knob raises ``NotImplementedError`` naming the reference
+module that has it.
 """
 from __future__ import annotations
 
@@ -79,6 +83,7 @@ class RoundEngine:
     n_clients: int
     terms: dict
     device: torch.device
+    aux: dict = dataclasses.field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +341,8 @@ def comm_state_init(pipe, params: dict, C: int, device):
 # ---------------------------------------------------------------------------
 
 def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
-                          C: int) -> RoundProgram:
+                          C: int, population=None, store=None,
+                          device=None) -> RoundProgram:
 
     def hop_rng(ctx):
         # the reference's split: (local, downlink, selection, uplink, next);
@@ -357,12 +363,26 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         ctx.update(deltas=deltas, losses=losses, first_losses=first_losses)
         return ctx
 
+    def hop_cohort(ctx):
+        # this round's client ids, pure in (population.seed, round): the
+        # data pipeline (cohort_data_fn) computes the same ids
+        ctx["ids"] = population.cohort_ids(ctx["state"].round, device)
+        return ctx
+
     def hop_select(ctx):
         sizes = ctx["batch"].get("sizes")
         if sizes is None:
             sizes = torch.ones((C,), dtype=torch.float32,
                                device=ctx["losses"].device)
         ctx["weights"] = sel.select(fl, sizes)
+        return ctx
+
+    def hop_select_available(ctx):
+        # the population's per-(id, round) availability draw zero-weights
+        # the sampled clients that are offline this round
+        avail = population.availability_mask(ctx["state"].round, ctx["ids"])
+        ctx["weights"] = sel.select(fl, ctx["batch"]["sizes"],
+                                    availability=avail)
         return ctx
 
     def hop_wire(ctx):
@@ -373,6 +393,24 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         rows, new_comm = dispatch.wire_rows(ctx.pop("deltas"),
                                             ctx["state"].comm_state,
                                             ctx["r_up"])
+        wsum = torch.clamp(weights.sum(), min=1e-9)
+        ctx.update(agg=dispatch.aggregate_rows(rows, weights, wsum),
+                   new_comm=new_comm,
+                   n_sel=(weights > 0).sum().to(torch.float32))
+        return ctx
+
+    def hop_population_wire(ctx):
+        # the sim wire over the cohort (reference _population_wire): its
+        # rows are gathered from the store, advanced by the same wire_rows
+        # as the dense wire, and scattered back at the commit; with
+        # capacity >= n_clients and cohort == n_clients gather and scatter
+        # are the identity
+        weights = ctx["weights"]
+        rows_in, st = store.gather(ctx["state"].comm_state, ctx["ids"])
+        rows, new_rows = dispatch.wire_rows(ctx.pop("deltas"), rows_in,
+                                            ctx["r_up"])
+        del rows_in
+        new_comm = store.scatter(st, ctx["ids"], new_rows)
         wsum = torch.clamp(weights.sum(), min=1e-9)
         ctx.update(agg=dispatch.aggregate_rows(rows, weights, wsum),
                    new_comm=new_comm,
@@ -406,28 +444,45 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
             round=st.round + 1, prev_delta=None)
         return ctx
 
-    hops = (("rng", hop_rng), ("downlink", hop_downlink),
-            ("local_update", hop_local_update),
-            ("select", hop_select), ("wire", hop_wire),
-            ("server_opt", hop_server_opt), ("ledger", hop_ledger),
-            ("finalize", hop_finalize))
-    return RoundProgram(hops=hops)
+    available = population is not None and population.availability_active
+    hops = [("rng", hop_rng)]
+    if population is not None:
+        hops.append(("cohort", hop_cohort))
+    hops += [("downlink", hop_downlink), ("local_update", hop_local_update),
+             ("select", hop_select_available if available else hop_select),
+             # a stateless pipeline keeps no per-client rows: no store
+             ("wire", hop_population_wire if store is not None else hop_wire),
+             ("server_opt", hop_server_opt), ("ledger", hop_ledger),
+             ("finalize", hop_finalize)]
+    return RoundProgram(hops=tuple(hops))
 
 
 def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
-               device) -> RoundEngine:
+               device, population=None) -> RoundEngine:
     C = topo.n_clients
     terms, up, down = ledger_terms(model, fl)
     server_opt.check(fl.server_opt)
+    store, aux = None, {}
+    if population is not None:
+        if population.n_clients != C:
+            raise ValueError(
+                f"population.n_clients ({population.n_clients}) must match "
+                f"Topology.sim(n_clients={C})")
+        C = population.cohort           # dispatch width = the cohort slice
+        store = population.make_store(up, model.defs, device)
+        aux = dict(population=population, cohort=C, store=store)
     dispatch = make_dispatch(model, fl, up, down, C, chunk)
-    program = _build_server_program(fl, terms, dispatch, C)
+    program = _build_server_program(fl, terms, dispatch, C,
+                                    population=population, store=store,
+                                    device=device)
 
     def state_from_params(params):
         return FLState(
             params=params,
             server_opt_state=server_opt.init_state(fl.server_opt, params),
             control=None, client_controls=None,
-            comm_state=(comm_state_init(up, params, C, device)
+            comm_state=(store.init() if store is not None
+                        else comm_state_init(up, params, C, device)
                         if up.stateful else None),
             rng=PRNGKey(fl.seed), round=0)
 
@@ -435,20 +490,53 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
         return state_from_params(model.init(seed, device))
 
     return RoundEngine(topology=topo, round_fn=program, init_fn=init_fn,
-                       state_from_params=state_from_params, n_clients=C,
-                       terms=terms, device=device)
+                       state_from_params=state_from_params,
+                       n_clients=topo.n_clients, terms=terms, device=device,
+                       aux=aux)
+
+
+# above this client count a dense sim build would allocate O(C x model)
+# comm_state rows; the build refuses and points at the streaming path
+POPULATION_DENSE_LIMIT = 4096
+
+
+def _check_population(fl: FLConfig, topology: Topology) -> None:
+    C = topology.n_clients
+    if C <= POPULATION_DENSE_LIMIT:
+        return
+    if not uplink_pipeline(fl).stateful:
+        return      # stateless sim keeps no per-client rows; C-wide is legal
+    raise ValueError(
+        f"{topology.kind} topology with n_clients={C} would allocate dense "
+        f"per-client state — O(C x model) comm_state rows for the stateful "
+        f"uplink pipeline — above the {POPULATION_DENSE_LIMIT}-client dense "
+        f"limit. Pass a streaming population instead: "
+        f"make_round_engine(..., population=ClientPopulation("
+        f"n_clients={C}, cohort=1024)) (core.population; CLI: "
+        f"--population {C} --cohort 1024), which bounds per-client state "
+        f"by the residual-store capacity (DESIGN.md §9).")
 
 
 def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
-                      chunk: int = 512, device=None) -> RoundEngine:
+                      chunk: int = 512, device=None,
+                      population=None) -> RoundEngine:
     """Build the round executor for one (model, fl, topology) binding on
-    ``device`` (``cuda`` unless ``device="cpu"`` is asked for)."""
+    ``device`` (``cuda`` unless ``device="cpu"`` is asked for).
+
+    ``population`` (a :class:`repro_torch.core.population
+    .ClientPopulation`) switches the sim round to streaming cohorts: each
+    round touches ``population.cohort`` sampled clients, and per-client
+    pipeline state lives in a bounded residual store.  Dense builds above
+    ``POPULATION_DENSE_LIMIT`` clients with a stateful uplink are
+    rejected."""
     dev = resolve_device(device)
     if topology.kind != "sim":
         raise not_ported(f"topology {topology.kind!r}", "repro.core.engine")
     if topology.n_clients <= 0:
         raise ValueError("sim topology needs n_clients > 0")
-    return _build_sim(model, fl, topology, chunk, dev)
+    if population is None:
+        _check_population(fl, topology)
+    return _build_sim(model, fl, topology, chunk, dev, population=population)
 
 
 def run_rounds(engine: RoundEngine, state, data_fn, n: int):

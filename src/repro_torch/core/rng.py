@@ -3,12 +3,14 @@
 The reference threads ``jax.random`` keys through every hop: ``split`` per
 round, per client, ``fold_in`` per leaf and per chain stage, and finally a
 ``uniform`` draw for QSGD's stochastic rounding (and UVeQ's dither and
-RandMask's scores), or a ``normal`` draw for RandMask's noise.  The port
+RandMask's scores), a ``normal`` draw for RandMask's noise, or a
+``randint`` / ``permutation`` draw for a population's cohort.  The port
 keeps the same key *structure* with :class:`Key`, a counter path hashed
 into the seed of a ``torch.Generator`` on the device at the draw.  It does
 not reproduce ``jax.random``'s bits; a test that needs the reference's
-draws passes its own object with the same four methods (``split``,
-``fold_in``, ``uniform`` and ``normal``), backed by ``jax.random``.
+draws passes its own object with the same six methods (``split``,
+``fold_in``, ``uniform``, ``normal``, ``randint`` and ``permutation``),
+backed by ``jax.random``.
 """
 from __future__ import annotations
 
@@ -42,7 +44,9 @@ class Key:
             h.update(struct.pack("<q", v))
         return int.from_bytes(h.digest(), "little") >> 1
 
-    def _generator(self, device) -> torch.Generator:
+    def generator(self, device) -> torch.Generator:
+        """A ``torch.Generator`` on ``device`` seeded with
+        :meth:`seed_int`: every draw of this key starts from it."""
         g = torch.Generator(device=torch.device(device))
         g.manual_seed(self.seed_int())
         return g
@@ -50,14 +54,25 @@ class Key:
     def uniform(self, shape, device) -> torch.Tensor:
         """f32 uniforms in [0, 1) of ``shape`` on ``device``, from a
         ``torch.Generator`` on that device seeded with :meth:`seed_int`."""
-        return torch.rand(tuple(shape), generator=self._generator(device),
+        return torch.rand(tuple(shape), generator=self.generator(device),
                           dtype=torch.float32, device=device)
 
     def normal(self, shape, device) -> torch.Tensor:
         """f32 standard normals of ``shape`` on ``device``, from the same
         generator as :meth:`uniform`."""
-        return torch.randn(tuple(shape), generator=self._generator(device),
+        return torch.randn(tuple(shape), generator=self.generator(device),
                            dtype=torch.float32, device=device)
+
+    def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
+        """int64 integers in [low, high) of ``shape`` on ``device``."""
+        return torch.randint(int(low), int(high), tuple(shape),
+                             generator=self.generator(device),
+                             dtype=torch.int64, device=device)
+
+    def permutation(self, n: int, device) -> torch.Tensor:
+        """A random permutation of ``range(n)``, int64 on ``device``."""
+        return torch.randperm(int(n), generator=self.generator(device),
+                              dtype=torch.int64, device=device)
 
 
 def PRNGKey(seed: int) -> Key:

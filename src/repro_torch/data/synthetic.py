@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.rng import Key
 from repro_torch.device import resolve_device
 
 
@@ -72,7 +73,57 @@ def sample_round(cfg: FedDataConfig, seed: int, device=None):
         tok = torch.multinomial(rows, 1, generator=g).reshape(C, B)
         toks.append(tok)
     tokens = torch.stack(toks, dim=-1)                    # (C, B, S)
+    return dict(_labels_and_mask(tokens), sizes=sizes)
+
+
+def _labels_and_mask(tokens):
     labels = torch.roll(tokens, -1, dims=-1)
-    mask = torch.ones((C, B, S), dtype=torch.float32, device=dev)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
     mask[:, :, -1] = 0.0
-    return {"tokens": tokens, "labels": labels, "mask": mask, "sizes": sizes}
+    return {"tokens": tokens, "labels": labels, "mask": mask}
+
+
+def sample_cohort(cfg: FedDataConfig, seed: int, ids, device=None):
+    """A cohort's batch in O(M), never materialising the population: the
+    shared G and P of :func:`client_tables`, then each client's cluster,
+    unigram skew and size from a generator keyed on its id alone, and the
+    uniforms of its token streams from one keyed on (round ``seed``, id).
+    The per-client draws are made on the CPU (the same values on every
+    device, and no device sync per client).  The values differ from
+    :func:`client_tables`' (the scale path, not a replica of the dense
+    one).  Returns the :func:`sample_round` dict with an (M,) lead plus
+    ``"ids"`` (int32)."""
+    dev = resolve_device(device)
+    V = min(cfg.vocab_size, 256)
+    f32 = dict(dtype=torch.float32, device=dev)
+    G = torch.randn((V, V), generator=_gen(cfg.seed, 0, dev), **f32) * 1.5
+    P = torch.randn((cfg.num_clusters, V, V),
+                    generator=_gen(cfg.seed, 1, dev), **f32) * 2.0
+    ids = ids.to(device=dev, dtype=torch.int32)
+    M, B, S = ids.shape[0], cfg.batch_per_client, cfg.seq_len
+    z, gamma, sizes, u = [], [], [], []
+    for i in ids.tolist():
+        g = Key(cfg.seed + 2).fold_in(i).generator("cpu")
+        z.append(int(torch.randint(0, cfg.num_clusters, (), generator=g)))
+        gamma.append(torch.randn((V,), generator=g))
+        sizes.append(1.0 + torch.rand((), generator=g))
+        u.append(Key(cfg.seed + 1).fold_in(int(seed)).fold_in(i)
+                 .uniform((B, S + 1), "cpu"))
+    gamma = torch.stack(gamma).to(dev) * 1.5 * cfg.client_skew      # (M, V)
+    logits = G[None] + cfg.heterogeneity * (P[torch.tensor(z, device=dev)]
+                                            + gamma[:, None, :])
+    # each stream by inverse-CDF sampling from the client's own uniforms
+    # (the first token uniform over V), so all M clients step together
+    cdf = torch.cumsum(torch.softmax(logits, dim=-1), dim=-1)
+    u = torch.stack(u).to(dev)                            # (M, B, S + 1)
+    midx = torch.arange(M, device=dev)[:, None].expand(M, B)
+    tok = (u[..., 0] * V).to(torch.int64).clamp(max=V - 1)
+    tokens = torch.empty((M, B, S), dtype=torch.int64, device=dev)
+    for t in range(S):
+        tok = torch.searchsorted(cdf[midx, tok].contiguous(),
+                                 u[..., t + 1:t + 2].contiguous()) \
+            .squeeze(-1).clamp(max=V - 1)
+        tokens[:, :, t] = tok
+    return dict(_labels_and_mask(tokens), sizes=torch.stack(sizes).to(dev),
+                ids=ids)

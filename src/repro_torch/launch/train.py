@@ -4,15 +4,35 @@ clients run one after another on one card.
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \\
         --compressor "topk:0.05>>qsgd:8" --backend kernel
 
-``--downlink lfl8`` QSGD-quantizes the broadcast model (LFL).  ``--device``
-defaults to ``cuda`` and the run fails without a card unless ``--device
-cpu`` is given.  The reference CLI's mesh, async, population, scenario,
-tracing, selection and server-optimizer options are not ported yet.
+``--downlink lfl8`` QSGD-quantizes the broadcast model (LFL).
+``--population N --cohort M`` runs the streaming-cohort path: N clients
+exist, M train each round, and per-client pipeline state lives in a
+residual store of ``--store-capacity`` slots that evicts by
+``--eviction`` (drop or sketch):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \\
+        --population 1000000 --cohort 16 --store-capacity 64 \\
+        --compressor "topk:0.05>>qsgd:8" --backend kernel --seq 48 \\
+        --batch-per-client 4 --rounds 4
+
+``--device`` defaults to ``cuda`` and the run fails without a card unless
+``--device cpu`` is given.  The reference CLI's mesh, async, scenario
+(other than ``--scenario-availability`` under ``--population``), tracing,
+selection and server-optimizer options are not ported yet; ``--async``
+and the other ``--scenario-*`` flags raise.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+# the reference's other --scenario-* flags and their defaults
+_NOT_PORTED_SCENARIO = (("--scenario-trace", "static"),
+                        ("--scenario-period", 24.0),
+                        ("--scenario-dropout", 0.0),
+                        ("--scenario-epoch-scale", 0.0),
+                        ("--scenario-deadline-quantile", 0.0),
+                        ("--scenario-seed", 0))
 
 
 def _parse(argv=None):
@@ -28,6 +48,26 @@ def _parse(argv=None):
     ap.add_argument("--backend", default="jax", choices=["jax", "kernel"],
                     help="encode backend for every wire hop: jax = the "
                          "plain PyTorch path, kernel = the CUDA kernels")
+    ap.add_argument("--population", type=int, default=0,
+                    help="simulate this many clients on the streaming "
+                         "ClientPopulation path: per-round cohorts and a "
+                         "bounded residual store")
+    ap.add_argument("--cohort", type=int, default=1024,
+                    help="clients sampled per round (population mode)")
+    ap.add_argument("--store-capacity", type=int, default=0,
+                    help="residual-store slots (0 = min(population, "
+                         "2 x cohort))")
+    ap.add_argument("--eviction", default="drop", choices=["drop", "sketch"],
+                    help="residual-store eviction: drop the evicted "
+                         "client's pipeline state, or fold it into the "
+                         "count-sketch tail")
+    ap.add_argument("--scenario-availability", type=float, default=1.0,
+                    help="per-round availability rate in (0, 1] of the "
+                         "sampled clients (population mode only)")
+    # reference options that the port does not run: set, they raise
+    ap.add_argument("--async", dest="async_mode", action="store_true")
+    for flag, default in _NOT_PORTED_SCENARIO:
+        ap.add_argument(flag, type=type(default), default=default)
     ap.add_argument("--seq", type=int, default=48)
     ap.add_argument("--batch-per-client", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -45,9 +85,17 @@ def main(argv=None):
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
     from repro_torch.data.synthetic import FedDataConfig, sample_round
-    from repro_torch.device import resolve_device
+    from repro_torch.device import not_ported, resolve_device
     from repro_torch.models.model import Model
 
+    if args.async_mode:
+        raise not_ported("--async", "repro.core.async_engine")
+    for flag, default in _NOT_PORTED_SCENARIO:
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            raise not_ported(flag, "repro.core.scenario")
+    if args.scenario_availability != 1.0 and args.population <= 0:
+        raise not_ported("--scenario-availability without --population",
+                         "repro.core.scenario")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     model = Model(cfg)
@@ -55,6 +103,8 @@ def main(argv=None):
                   local_lr=args.local_lr, uplink_compressor=args.compressor,
                   downlink_compressor=args.downlink, backend=args.backend,
                   seed=args.seed)
+    if args.population > 0:
+        return _population(args, cfg, model, fl, device)
     sim = make_sim_step(model, fl, args.clients, chunk=args.seq,
                         device=device)
     data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=args.clients,
@@ -77,6 +127,49 @@ def main(argv=None):
         print(f"round {i:>3} loss={float(ms['loss'][i]):.3f} "
               f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB "
               f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x",
+              flush=True)
+    print(f"{args.rounds} rounds in {secs:.2f}s on {device}")
+    return state, ms
+
+
+def _population(args, cfg, model, fl, device):
+    """The streaming-cohort path: --population clients exist, --cohort
+    train per round, per-client pipeline state bounded by the store."""
+    import torch
+
+    from repro_torch.compress.residual_store import store_nbytes
+    from repro_torch.core.engine import Topology, make_round_engine, run_rounds
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.data.pipeline import cohort_data_fn
+    from repro_torch.data.synthetic import FedDataConfig
+
+    N = args.population
+    pop = ClientPopulation(n_clients=N, cohort=min(args.cohort, N),
+                           capacity=args.store_capacity,
+                           eviction=args.eviction,
+                           availability=args.scenario_availability)
+    data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=N,
+                         seq_len=args.seq,
+                         batch_per_client=args.batch_per_client,
+                         heterogeneity=1.5, seed=args.seed)
+    data_fn = cohort_data_fn(pop, data, device)
+    engine = make_round_engine(model, fl, Topology.sim(N), chunk=args.seq,
+                               device=device, population=pop)
+    state = engine.init_fn(args.seed)
+    mb = (store_nbytes(state.comm_state) / 1e6
+          if state.comm_state is not None else 0.0)
+    print(f"population={N:,} cohort={pop.cohort} capacity={pop.capacity} "
+          f"eviction={pop.eviction} store={mb:.1f}MB "
+          f"params={model.param_count():,} sync device={device} "
+          f"uplink={args.compressor} backend={args.backend}", flush=True)
+    t0 = time.perf_counter()
+    state, ms = run_rounds(engine, state, data_fn, args.rounds)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    for i in range(args.rounds):
+        print(f"round {i:>4} loss={float(ms['loss'][i]):.3f} "
+              f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB",
               flush=True)
     print(f"{args.rounds} rounds in {secs:.2f}s on {device}")
     return state, ms

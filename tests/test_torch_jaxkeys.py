@@ -2,10 +2,11 @@
 
 ``repro_torch`` threads keys with the reference's structure (split per
 round and per client, ``fold_in`` per leaf and per chain stage) but draws
-its own uniforms.  :class:`JaxKey` has the port key's four methods and
+its own uniforms.  :class:`JaxKey` has the port key's six methods and
 answers them with ``jax.random``, so a port run handed a ``JaxKey`` draws
 exactly the reference's QSGD uniforms (and UVeQ's dither, RandMask's
-scores and noise) — the key path of the main path is
+scores and noise, and a population's cohorts and availability) — the key
+path of the main path is
 
     state.rng -> split(5)[3] -> split(C)[c] -> fold_in(leaf)
               -> (EF passes it through) -> fold_in(1) -> uniform((nb, blk))
@@ -30,14 +31,15 @@ class JaxKey:
         self.key = key
 
     def split(self, n):
-        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+        # rows of a host copy: iterating the device array dispatches one
+        # indexing op per row
+        return [JaxKey(k) for k in np.asarray(jax.random.split(self.key, n))]
 
     def fold_in(self, data):
         return JaxKey(jax.random.fold_in(self.key, data))
 
     def uniform(self, shape, device):
-        u = np.asarray(jax.random.uniform(self.key, tuple(shape),
-                                          jnp.float32))
+        u = np.asarray(_uniform(self.key, tuple(shape)))
         return torch.from_numpy(u.copy()).to(device)
 
     def normal(self, shape, device):
@@ -46,9 +48,31 @@ class JaxKey:
         z = np.asarray(_ieee_normal(self.key, tuple(shape)))
         return torch.from_numpy(z.copy()).to(device)
 
+    def randint(self, low, high, shape, device):
+        # int32, the reference's draw for bounds below 2^31
+        v = np.asarray(_randint(self.key, tuple(shape), low, high))
+        return torch.from_numpy(v.astype(np.int64)).to(device)
+
+    def permutation(self, n, device):
+        v = np.asarray(_permutation(self.key, n))
+        return torch.from_numpy(v.astype(np.int64)).to(device)
+
+
+# compiled once per shape (eager jax.random re-dispatches every
+# primitive).  ``uniform`` is integer hashing, then exact float ops (an OR into the
+# mantissa, a subtraction of 1.0, a multiply by 1.0), so it draws the same
+# bits at any optimization level; level 0 compiles each shape faster
+_uniform = jax.jit(lambda k, shape: jax.random.uniform(k, shape, jnp.float32),
+                   static_argnums=1,
+                   compiler_options={"xla_backend_optimization_level": 0})
+_randint = jax.jit(lambda k, shape, lo, hi: jax.random.randint(k, shape, lo,
+                                                               hi),
+                   static_argnums=1)
+_permutation = jax.jit(jax.random.permutation, static_argnums=1)
+
 
 IEEE_OPTIONS = {"xla_backend_optimization_level": 0,
-                "xla_disable_hlo_passes": "algsimp"}
+                "xla_disable_hlo_passes": "algsimp,fusion"}
 
 
 def ieee_jit(fn, **jit_kw):
@@ -58,7 +82,10 @@ def ieee_jit(fn, **jit_kw):
     contracts a multiply feeding an add into one FMA (QSGD's
     ``x / s * L + u``, the EF residual's ``y - q / L * s``), and XLA's
     algebraic simplifier turns ``q / L`` into ``q * (1 / L)`` (DESIGN.md
-    §6's engine-scope class)."""
+    §6's engine-scope class).  The loop fusions that XLA's ``fusion`` pass
+    builds can still contract at optimization level 0 (an 8-client EF
+    ``topk>>qsgd:8`` wire flipped one QSGD code of 786,432 against op by
+    op), so that pass is off too."""
     return jax.jit(fn, compiler_options=IEEE_OPTIONS, **jit_kw)
 
 
@@ -103,6 +130,15 @@ def test_ieee_jit_rounds_every_op():
         (a / np.float32(127.0)) * c)
 
 
+def test_jaxkey_randint_and_permutation_are_the_reference_draws():
+    k = jax.random.fold_in(jax.random.PRNGKey(7), 3)
+    np.testing.assert_array_equal(
+        JaxKey(k).randint(0, 1000, (5,), "cpu").numpy(),
+        np.asarray(jax.random.randint(k, (5,), 0, 1000)))
+    np.testing.assert_array_equal(JaxKey(k).permutation(50, "cpu").numpy(),
+                                  np.asarray(jax.random.permutation(k, 50)))
+
+
 def test_port_key_is_deterministic_and_path_sensitive():
     k = Key(3)
     a = k.split(5)[3].fold_in(2).uniform((4, 5), "cpu")
@@ -112,3 +148,9 @@ def test_port_key_is_deterministic_and_path_sensitive():
     assert torch.equal(a, b)
     assert not torch.equal(a, c) and not torch.equal(a, d)
     assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
+    r = k.fold_in(1).randint(5, 9, (1000,), "cpu")
+    assert torch.equal(r, Key(3).fold_in(1).randint(5, 9, (1000,), "cpu"))
+    assert r.dtype == torch.int64 and set(r.tolist()) == {5, 6, 7, 8}
+    p = k.fold_in(2).permutation(100, "cpu")
+    assert torch.equal(p, Key(3).fold_in(2).permutation(100, "cpu"))
+    assert sorted(p.tolist()) == list(range(100))
