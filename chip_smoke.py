@@ -81,12 +81,32 @@ line is printed):
      a phase (6: 1,000,000 clients, 6b: ``sketch``, 6c) profiles its last
      round for the device busy share, top device ops and the store's
      share of device time;
-  7. the ``kernels`` JSON line: launch counts are those of the main-path
-     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c), each counted from 0
-     just before its phase (the count sketch's by path too, each of which
-     must launch); the pack and unpack kernels are on no path and count
-     their phase-3 calls;
-  8. last line: ``{"ok": true, "device": {...}}``.
+  7. slice 6's path, the survey's client and server algorithms: paper_lm,
+     8 clients, seq 32, batch 2, E=2, 4 rounds with the held-out eval
+     every 2 rounds (``run_rounds(..., metrics_fn=, eval_every=2)``), on
+     both backends: FedAvgM, FedAdam and FedYogi (server lr 0.05 for the
+     adaptive two), SCAFFOLD and FedDANE (mu 0.01, E=3, lr 0.1) on EF
+     ``topk:0.05>>qsgd:8``, and CMFL 0.52 with FedAdam on the dense
+     ``qsgd:8``.  Backends bit-identical in params, every state field
+     (moments, controls, ``prev_delta``, EF residuals), losses, eval
+     losses, ``selected`` and ledger; SCAFFOLD's and FedDANE's uplink
+     exactly twice FedAvgM's; CMFL selects all 8 at round 0; the eval
+     loss NaN on rounds 0 and 2, finite on 1 and 3;
+  7b. llama3_2_1b at full width and depth, 2 clients, seq 128, batch 1,
+     E=1, 3 rounds of FedAdam with CMFL 0.52 on ``qsgd:8`` through the
+     kernels;
+  7c. the same, 2 rounds of SCAFFOLD (E=2) on ``qsgd:4@fused``.  Phases
+     7b and 7c need finite losses and parameters, the ledger equal to its
+     static terms times the selected count, and a peak memory under 76
+     GiB, printed beside the card's name and power limit.  Phases 7-7c
+     print each run's round times, losses, eval losses and ``selected``;
+     one kernel run a phase (7: FedAdam) profiles its last round;
+  8. the ``kernels`` JSON line: launch counts are those of the main-path
+     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c), each counted
+     from 0 just before its phase (the count sketch's by path too, each of
+     which must launch); the pack and unpack kernels are on no path and
+     count their phase-3 calls;
+  9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -160,6 +180,44 @@ EVICT_POP = (192, 24, 32, 6)
 LLAMA_POP = dict(n_clients=1_000_000, cohort=2, capacity=2,
                  eviction="sketch", spec="topk:0.05>>qsgd:4@fused", rounds=3)
 LLAMA_PEAK_GIB = 76.0
+# slice 6's path: the survey's client and server algorithms on paper_lm,
+# E=2, lr 0.2 unless a run says otherwise; the adaptive server steps at
+# the reference's own server lr for them (launch/dryrun.py:52,
+# tests/test_async.py:107); (label, FLConfig knobs, kernels the kernel
+# backend runs)
+ALGO_CLIENTS, ALGO_SEQ, ALGO_BATCH, ALGO_ROUNDS, ALGO_EVAL_EVERY = \
+    8, 32, 2, 4, 2
+ALGO_CHAIN = "topk:0.05>>qsgd:8"
+ALGO_RUNS = (
+    ("fedavgm", dict(server_opt="fedavgm", uplink_compressor=ALGO_CHAIN),
+     ("threshold_sparsify", "qsgd_quantize")),
+    ("fedadam", dict(server_opt="fedadam", server_lr=0.05,
+                     uplink_compressor=ALGO_CHAIN),
+     ("threshold_sparsify", "qsgd_quantize")),
+    ("fedyogi", dict(server_opt="fedyogi", server_lr=0.05,
+                     uplink_compressor=ALGO_CHAIN),
+     ("threshold_sparsify", "qsgd_quantize")),
+    ("scaffold", dict(algorithm="scaffold", uplink_compressor=ALGO_CHAIN),
+     ("threshold_sparsify", "qsgd_quantize")),
+    ("feddane", dict(algorithm="feddane", fedprox_mu=0.01, local_steps=3,
+                     local_lr=0.1, uplink_compressor=ALGO_CHAIN),
+     ("threshold_sparsify", "qsgd_quantize")),
+    # the dense wire: after top-k, prev_delta is 95% zeros and every
+    # client falls below 0.52 from round 1 on
+    ("cmfl", dict(cmfl_threshold=0.52, server_opt="fedadam", server_lr=0.05,
+                  uplink_compressor="qsgd:8"),
+     ("qsgd_quantize",)),
+)
+ALGO_PROFILED = "fedadam"        # phase 7's kernel run that is profiled
+# (label, FLConfig knobs, local steps, rounds, eval cadence, kernels)
+LLAMA_ALGO_RUNS = (
+    ("7b", "FedAdam + CMFL 0.52, qsgd:8",
+     dict(server_opt="fedadam", server_lr=0.05, cmfl_threshold=0.52,
+          uplink_compressor="qsgd:8"), 1, 3, 3, ("qsgd_quantize",)),
+    ("7c", "SCAFFOLD E=2, qsgd:4@fused",
+     dict(algorithm="scaffold", uplink_compressor="qsgd:4@fused"), 2, 2, 2,
+     ("qsgd_pack",)),
+)
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -1323,6 +1381,230 @@ def llama_population_phase(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 7-7c: the client and server algorithms
+# ---------------------------------------------------------------------------
+
+def run_algorithm(model, fl_kw, backend, clients, seq, batch, rounds,
+                  eval_every, dev, local_steps, local_lr, profiled=False):
+    """``rounds`` rounds of ``make_sim_step`` through ``run_rounds`` with
+    a held-out eval (``eval_batch``) as its ``metrics_fn`` at
+    ``eval_every``.  Records each round's wall time (host clock,
+    synchronised); with ``profiled`` the last round runs under
+    ``torch.profiler``.  Returns (sim, state, metrics, round times, the
+    profiler or None, the hop log of the peak memory)."""
+    from repro_torch.core.engine import run_rounds
+    from repro_torch.core.simulate import make_sim_step
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.synthetic import eval_batch, sample_round
+
+    kw = dict(dict(local_steps=local_steps, local_lr=local_lr), **fl_kw)
+    fl = FLConfig(backend=backend, eval_every=eval_every, **kw)
+    sim = make_sim_step(model, fl, clients, chunk=seq, device=dev)
+    program = sim.engine.round_fn
+    peak_log = watch_peak(program)
+    data = fed_data(model, clients, seq, batch)
+    ev = eval_batch(data, 99, batch_size=batch, device=dev)
+    times, prof = [], None
+
+    def timed_round(state, b):
+        nonlocal prof
+        torch.cuda.synchronize()
+        if profiled and state.round == rounds - 1:
+            prof = profiled_if(True)
+            prof.start()
+        t0 = time.perf_counter()
+        out = program(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if prof is not None and state.round == rounds - 1:
+            prof.stop()
+        return out
+
+    def metrics_fn(state, m):
+        with torch.no_grad():
+            loss = model.loss(state.params, ev, chunk=seq)[0]
+        return dict(m, eval_loss=loss)
+
+    sim.engine.round_fn = timed_round
+    state = sim.init_fn(0)
+    state, ms = run_rounds(sim.engine, state,
+                           lambda r: sample_round(data, r, dev), rounds,
+                           metrics_fn=metrics_fn)
+    torch.cuda.synchronize()
+    return sim, state, ms, times, prof, peak_log
+
+
+def state_fields(state):
+    """Every tensor of an FLState, by field: params, the server moments,
+    the controls, prev_delta, the EF residuals."""
+    return {f: _tensors(getattr(state, f))
+            for f in ("params", "server_opt_state", "control",
+                      "client_controls", "prev_delta", "comm_state")}
+
+
+def same_bits(a, b):
+    """Bit-identical, NaN where NaN (the eval loss off its cadence)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, nan=0.0),
+                            torch.nan_to_num(b, nan=0.0)))
+
+
+def check_algorithm_ledger(sim, ms, what):
+    """Every round's ledger equals the static terms (SCAFFOLD's and
+    FedDANE's uplink doubled in them) times the round's selected count,
+    in float32."""
+    terms = sim.terms
+    want = {"uplink_wire": terms["up_wire"],
+            "uplink_entropy": terms["up_entropy"],
+            "downlink_wire": terms["down_wire"],
+            "uplink_dense": terms["dense"], "downlink_dense": terms["dense"]}
+    sel = ms["selected"].cpu()
+    for name, term in want.items():
+        got = getattr(ms["ledger"], name).cpu()
+        exp = sel * torch.tensor(term, dtype=torch.float32)
+        if not torch.equal(got, exp):
+            fail(f"{what}: ledger {name} {got.tolist()} != selected x "
+                 f"{term} = {exp.tolist()}")
+
+
+def check_eval_cadence(ms, rounds, eval_every, what):
+    ev = [float(v) for v in ms["eval_loss"]]
+    for r, v in enumerate(ev):
+        due = r % eval_every == eval_every - 1
+        if due != (v == v) or (due and not abs(v) < 1e6):
+            fail(f"{what}: eval loss {ev} off the cadence of every "
+                 f"{eval_every} rounds")
+    return ev
+
+
+def fmt(vals):
+    return [round(float(v), 6) for v in vals]
+
+
+def algorithms_phase(dev):
+    """Slice 6's path on paper_lm, each run on both backends: bit-identical
+    backends, the 2x uplink bill, CMFL's warm-up round and the eval
+    cadence."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    print(f"paper_lm algorithms: {ALGO_CLIENTS} clients, seq {ALGO_SEQ}, "
+          f"batch {ALGO_BATCH}, {ALGO_ROUNDS} rounds, eval every "
+          f"{ALGO_EVAL_EVERY}, E=2 lr=0.2 unless set", flush=True)
+    uplink = {}
+    for label, fl_kw, kernels in ALGO_RUNS:
+        runs = {}
+        for backend in ("kernel", "jax"):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            sim, state, ms, times, prof, _ = run_algorithm(
+                model, fl_kw, backend, ALGO_CLIENTS, ALGO_SEQ, ALGO_BATCH,
+                ALGO_ROUNDS, ALGO_EVAL_EVERY, dev, 2, 0.2,
+                profiled=backend == "kernel" and label == ALGO_PROFILED)
+            secs = time.perf_counter() - t0
+            what = f"paper_lm {label} {fl_kw} backend={backend}"
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, kernels if backend == "kernel" else (), what)
+            losses = check_finite(ms, state, what)
+            ev = check_eval_cadence(ms, ALGO_ROUNDS, ALGO_EVAL_EVERY, what)
+            check_algorithm_ledger(sim, ms, what)
+            for field, ts in state_fields(state).items():
+                if not all(bool(torch.isfinite(t).all()) for t in ts):
+                    fail(f"{what}: non-finite {field}")
+            selected = [int(v) for v in ms["selected"]]
+            print(f"{what}: loss per round {fmt(losses)}, eval loss "
+                  f"{fmt(ev)}, selected {selected}, up "
+                  f"{fmt(ms['ledger'].uplink_wire)} B, launches {ran}, "
+                  f"round times {', '.join(f'{t:.3f}' for t in times)} s "
+                  f"({secs:.2f}s in all)", flush=True)
+            if prof is not None:
+                print_profile(prof, times[-1], f"{what}, last round", top=6)
+            runs[backend] = (state, ms)
+        (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
+        fk, fp = state_fields(sk), state_fields(sp)
+        pairs = [(a, b) for f in fk for a, b in zip(fk[f], fp[f])]
+        if any(len(fk[f]) != len(fp[f]) for f in fk):
+            fail(f"paper_lm {label}: the backends' states differ in form")
+        pairs += [(getattr(mk["ledger"], f), getattr(mp["ledger"], f))
+                  for f in mk["ledger"].fields()]
+        pairs += [(mk[k], mp[k]) for k in ("loss", "eval_loss", "selected")]
+        for a, b in pairs:
+            if not same_bits(a, b):
+                fail(f"paper_lm {label}: kernel backend differs from the "
+                     f"plain backend (max abs err "
+                     f"{float((a.double() - b.double()).abs().nan_to_num().max())})")
+        counts = {f: len(ts) for f, ts in fk.items() if ts}
+        print(f"paper_lm {label}: kernel and plain backends bit-identical "
+              f"({len(pairs)} tensors: {counts}, ledger, losses, eval "
+              f"losses, selected)", flush=True)
+        uplink[label] = mk["ledger"].uplink_wire.cpu()
+        if label == "cmfl" and int(mk["selected"][0]) != ALGO_CLIENTS:
+            fail(f"paper_lm cmfl: round 0 selected "
+                 f"{int(mk['selected'][0])} of {ALGO_CLIENTS}")
+    for label in ("scaffold", "feddane"):
+        if not torch.equal(uplink[label], 2 * uplink["fedavgm"]):
+            fail(f"paper_lm {label}: uplink {uplink[label].tolist()} is not "
+                 f"twice fedavgm's {uplink['fedavgm'].tolist()}")
+    print(f"paper_lm algorithms: scaffold's and feddane's uplink exactly "
+          f"2x fedavgm's ({float(uplink['fedavgm'][0]):,.0f} B/round)",
+          flush=True)
+
+
+def llama_algorithm_phase(dev, tag):
+    """llama3_2_1b at full width and depth through the kernels: finite
+    losses and parameters, the ledger equal to its terms times the
+    selected count, the eval cadence, and the peak memory under 76 GiB."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    _, label, fl_kw, steps, rounds, eval_every, kernels = next(
+        run for run in LLAMA_ALGO_RUNS if run[0] == tag)
+    cfg = get_arch("llama3_2_1b")
+    model = Model(cfg)
+    what = f"llama3_2_1b {label}"
+    print(f"{what}: {model.param_count():,} params, {cfg.num_layers} layers "
+          f"(no depth cut), {LLAMA_CLIENTS} clients, seq {LLAMA_SEQ}, batch "
+          f"{LLAMA_BATCH}, E={steps}, {rounds} rounds, eval every "
+          f"{eval_every}, backend=kernel", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    sim, state, ms, times, prof, peak_log = run_algorithm(
+        model, fl_kw, "kernel", LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH,
+        rounds, eval_every, dev, steps, 0.05, profiled=True)
+    secs = time.perf_counter() - t0
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    check_launches(ran, kernels, what)
+    losses = check_finite(ms, state, what)
+    ev = check_eval_cadence(ms, rounds, eval_every, what)
+    check_algorithm_ledger(sim, ms, what)
+    for field, ts in state_fields(state).items():
+        if not all(bool(torch.isfinite(t).all()) for t in ts):
+            fail(f"{what}: non-finite {field}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if peak >= LLAMA_PEAK_GIB:
+        fail(f"{what}: peak memory {peak:.1f} GiB, not under "
+             f"{LLAMA_PEAK_GIB} GiB")
+    state_gib = {f: round(sum(t.numel() * t.element_size() for t in ts)
+                          / 2**30, 2)
+                 for f, ts in state_fields(state).items() if ts}
+    print(f"{what}: loss per round {fmt(losses)}, eval loss {fmt(ev)}, "
+          f"selected {[int(v) for v in ms['selected']]}, up "
+          f"{fmt(ms['ledger'].uplink_wire)} B, ledger == terms x selected, "
+          f"launches {ran}, round times "
+          f"{', '.join(f'{t:.2f}' for t in times)} s ({secs:.2f}s in all)",
+          flush=True)
+    print(f"{what}: peak memory {peak:.2f} GiB (limit "
+          f"{LLAMA_PEAK_GIB:.0f}; last raised in the {peak_log.get('hop')} "
+          f"hop), state GiB {state_gib}, on {card_line()}", flush=True)
+    print_profile(prof, times[-1], f"{what}, last round")
+    del sim, state, ms
+    torch.cuda.empty_cache()
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -1441,7 +1723,10 @@ def main():
                   lambda d: llama_phase(d, LLAMA_SKETCH,
                                         ("count_sketch", "qsgd_quantize"),
                                         "EF sketch>>qsgd:8"),
-                  population_phase, eviction_phase, llama_population_phase):
+                  population_phase, eviction_phase, llama_population_phase,
+                  algorithms_phase,
+                  lambda d: llama_algorithm_phase(d, "7b"),
+                  lambda d: llama_algorithm_phase(d, "7c")):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

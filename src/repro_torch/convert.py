@@ -13,8 +13,12 @@ structure with the reference's arrays, given in ``jax.tree.leaves`` order
 reference's count-sketch hash parameters (uint32 arrays) in the port's
 int64 form.  ``store_from_jax`` / ``store_to_jax`` carry a
 ``ResidualStore`` state (slab, client, stamp, clock and the sketch tail;
-any dict / tuple pytree of arrays) across unchanged in structure.  No
-function here imports JAX.
+any dict / tuple pytree of arrays) across unchanged in structure.
+``algorithm_state_from_jax`` / ``algorithm_state_to_jax`` carry the
+client and server algorithms' state fields of an ``FLState``
+(``server_opt_state``'s ``m`` and ``v``, SCAFFOLD's ``control`` and
+``client_controls``, CMFL's ``prev_delta``).  No function here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -118,3 +122,41 @@ def store_to_jax(state):
     if isinstance(state, (tuple, list)):
         return tuple(store_to_jax(v) for v in state)
     return _to_numpy(state)
+
+
+# the FLState fields of the client and server algorithms: params-shaped
+# trees (client_controls with a leading client dim; server_opt_state a
+# dict of them), or None when the feature is off
+ALGORITHM_FIELDS = ("server_opt_state", "control", "client_controls",
+                    "prev_delta")
+
+
+def algorithm_state_from_jax(state, device="cpu") -> dict:
+    """The reference's ``FLState`` (its arrays as numpy) -> the port's
+    values of :data:`ALGORITHM_FIELDS` by name: each params-shaped tree a
+    flat ``{dotted path: Tensor}`` dict as :func:`params_from_jax` makes
+    it, ``server_opt_state`` a dict of them, None left None."""
+    out = {}
+    for f in ALGORITHM_FIELDS:
+        v = getattr(state, f)
+        if v is not None and f == "server_opt_state":
+            v = {k: params_from_jax(t, device) for k, t in v.items()}
+        elif v is not None:
+            v = params_from_jax(v, device)
+        out[f] = v
+    return out
+
+
+def algorithm_state_to_jax(state) -> dict:
+    """The inverse of :func:`algorithm_state_from_jax`: the port's state's
+    :data:`ALGORITHM_FIELDS` as the reference's nested dicts of numpy
+    arrays."""
+    out = {}
+    for f in ALGORITHM_FIELDS:
+        v = getattr(state, f)
+        if v is not None and f == "server_opt_state":
+            v = {k: params_to_jax(t) for k, t in v.items()}
+        elif v is not None:
+            v = params_to_jax(v)
+        out[f] = v
+    return out

@@ -3,11 +3,15 @@
 One FL round is a :class:`RoundProgram`, an ordered sequence of hops over a
 plain dict context, as in the reference:
 
-    rng -> downlink -> local_update -> select -> wire -> server_opt
-        -> ledger -> finalize
+    rng -> [cohort] -> downlink -> [dane_gradient] -> local_update
+        -> select -> [cmfl] -> wire -> [control] -> server_opt -> ledger
+        -> finalize
 
 built on the shared dispatch body (:func:`make_dispatch`: ``downlink``,
-``local_update``, ``wire_rows``, ``aggregate_rows``).  The reference's
+``local_update`` / ``client_updates``, ``global_gradient``,
+``wire_rows``, ``aggregate_rows``).  The bracketed hops are there only
+when their feature is on: a population's cohort, FedDANE's gradient
+round, CMFL's relevance filter and SCAFFOLD's control variates.  The reference's
 ``vmap`` over clients is a Python loop over the client dim here, and its
 ``lax.scan`` over rounds is the Python loop of :func:`run_rounds`.
 
@@ -18,14 +22,17 @@ index, and the chain folds in its stage index; the downlink roundtrips
 every leaf with the same downlink key — so a test that injects
 ``jax.random``-backed keys gets the reference's QSGD uniforms.
 
-Only the ``sim`` topology with fedavg / fedsgd / fedprox, EF or DGC
-uplinks, a downlink compressor roundtripped per leaf (e.g. ``lfl8``),
-``selection="all"`` and the ``fedavg`` server step is ported, densely or
-over a streaming :class:`~repro_torch.core.population.ClientPopulation`
-(``population=``: a ``cohort`` hop after ``rng``, the dispatch width set
-to the cohort, and the per-client pipeline state in a ``ResidualStore``);
-every other knob raises ``NotImplementedError`` naming the reference
-module that has it.
+Only the ``sim`` topology is ported: the fedavg, fedsgd, fedprox,
+scaffold and feddane client algorithms, CMFL (``cmfl_threshold``), EF or
+DGC uplinks, a downlink compressor roundtripped per leaf (e.g. ``lfl8``),
+full participation and the fedavg / fedavgm / fedadam / fedyogi server
+step, densely or over a streaming
+:class:`~repro_torch.core.population.ClientPopulation` (``population=``:
+a ``cohort`` hop after ``rng``, the dispatch width set to the cohort, and
+the per-client pipeline state in a ``ResidualStore``); every other knob
+raises ``NotImplementedError`` naming the reference module that has it.
+The client and server algorithms' state runs leaf by leaf: no hop builds
+a concatenation of the model or of C clients' rows.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from repro_torch.device import not_ported, resolve_device
 from repro_torch.models.layers import scalar_like
 from repro_torch.models.model import Model
 
-_ALGORITHMS = ("fedavg", "fedsgd", "fedprox")
+_ALGORITHMS = ("fedavg", "fedsgd", "fedprox", "scaffold", "feddane")
 _SCENARIO_FIELDS = ("scenario_trace", "scenario_period",
                     "scenario_availability", "scenario_dropout",
                     "scenario_epoch_scale", "scenario_deadline_quantile")
@@ -84,6 +91,7 @@ class RoundEngine:
     terms: dict
     device: torch.device
     aux: dict = dataclasses.field(default_factory=dict)
+    eval_every: int = 1                # run_rounds' metrics_fn cadence
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +102,6 @@ def check_fl(fl: FLConfig) -> None:
     """Reject the reference's knobs this slice does not run."""
     if fl.algorithm not in _ALGORITHMS:
         raise not_ported(f"algorithm={fl.algorithm!r}", "repro.core.engine")
-    if fl.cmfl_threshold > 0:
-        raise not_ported("CMFL (cmfl_threshold > 0)", "repro.core.engine")
     if fl.secure_agg or fl.dp_sigma > 0 or fl.dp_clip > 0:
         raise not_ported("secure aggregation / DP noise",
                          "repro.compress.secure_agg")
@@ -152,9 +158,11 @@ def ledger_terms(model: Model, fl: FLConfig):
     down = make_compressor(fl.downlink_compressor, block=fl.qsgd_block,
                            backend=fl.backend, wire_format=fl.wire_format)
     sizes = model.param_sizes()
+    # SCAFFOLD ships control variates, FedDANE ships a gradient round: 2x
+    scaff = 2.0 if fl.algorithm in ("scaffold", "feddane") else 1.0
     t = {
-        "up_wire": sum(up.wire_bits(n) for n in sizes) / 8.0,
-        "up_entropy": sum(up.entropy_bits(n) for n in sizes) / 8.0,
+        "up_wire": scaff * sum(up.wire_bits(n) for n in sizes) / 8.0,
+        "up_entropy": scaff * sum(up.entropy_bits(n) for n in sizes) / 8.0,
         "down_wire": sum(down.wire_bits(n) for n in sizes) / 8.0,
         "dense": sum(32.0 * n for n in sizes) / 8.0,
         "dp_rho": up.dp_rho_per_round(),
@@ -186,10 +194,18 @@ def _value_and_grad(model: Model, params: dict, batch_c, chunk):
     return loss.detach(), dict(zip(names, grads))
 
 
-def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk):
+def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk,
+                   control=None, c_i=None, global_grad=None):
     """One client's local training.  Returns (delta, mean_loss,
-    first_loss).  E = 1 fedavg/fedsgd takes the reference's fast path:
-    ``-lr * g`` in the parameter dtype, then cast to the delta dtype."""
+    first_loss, new_c_i).  E = 1 fedavg/fedsgd takes the reference's fast
+    path: ``-lr * g`` in the parameter dtype, then cast to the delta dtype.
+
+    ``scaffold`` adds ``(control - c_i)``, cast to the gradient's dtype, to
+    every step's gradient and returns ``new_c_i = c_i - control -
+    delta / (E * lr)``; ``feddane`` adds ``global_grad - g_i(params)``
+    (the DANE correction, in f32, cast likewise) and, with
+    ``fedprox_mu``, the proximal term.  Other algorithms return ``c_i``
+    unchanged."""
     E, lr = fl.local_steps, fl.local_lr
     ddt = torch.bfloat16 if fl.delta_dtype == "bf16" else torch.float32
     fast = (E == 1 and fl.algorithm in ("fedavg", "fedsgd")
@@ -198,9 +214,16 @@ def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk):
         loss, g = _value_and_grad(model, params, batch_c, chunk)
         delta = {n: (g_ * scalar_like(-lr, g_)).to(ddt)
                  for n, g_ in g.items()}
-        return delta, loss, loss
+        return delta, loss, loss, c_i
 
-    prox = fl.algorithm == "fedprox" and fl.fedprox_mu
+    dane_corr = None
+    if fl.algorithm == "feddane" and global_grad is not None:
+        _, g_i0 = _value_and_grad(model, params, batch_c, chunk)
+        dane_corr = {n: global_grad[n].to(torch.float32)
+                     - g_i0[n].to(torch.float32) for n in params}
+        del g_i0
+    prox = fl.algorithm in ("fedprox", "feddane") and fl.fedprox_mu
+    scaffold = fl.algorithm == "scaffold"
     p_c = dict(params)
     losses = []
     for _ in range(E):
@@ -212,12 +235,21 @@ def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk):
             if prox:
                 g_ = g_ + scalar_like(fl.fedprox_mu, g_) * \
                     (a - params[n]).to(g_.dtype)
+            if dane_corr is not None:
+                g_ = g_ + dane_corr[n].to(g_.dtype)
+            if scaffold:
+                g_ = g_ + (control[n] - c_i[n]).to(g_.dtype)
             step[n] = (a.to(torch.float32)
                        - g_.to(torch.float32) * lr).to(a.dtype)
         p_c = step
     delta = {n: (p_c[n].to(torch.float32) - p.to(torch.float32)).to(ddt)
              for n, p in params.items()}
-    return delta, torch.stack(losses).mean(), losses[0]
+    new_c_i = c_i
+    if scaffold:
+        new_c_i = {n: c_i[n] - control[n]
+                   - delta[n] / scalar_like(E * lr, delta[n])
+                   for n in params}
+    return delta, torch.stack(losses).mean(), losses[0], new_c_i
 
 
 # ---------------------------------------------------------------------------
@@ -250,12 +282,18 @@ def _stack_states(states):
 class Dispatch:
     """One dispatch generation: ``downlink(params, k_down) -> params`` (the
     LFL-quantized broadcast), ``local_update(params, model_batch) ->
-    (deltas, losses, first_losses)``, ``wire_rows(deltas, comm_state,
-    k_up) -> (decoded rows, new comm_state)`` and ``aggregate_rows(rows,
-    w_num, wsum)``.  Deltas and rows are ``{leaf name: (C, *leaf shape)}``
-    in leaf order."""
+    (deltas, losses, first_losses)``, its general form
+    ``client_updates(params, model_batch, control, client_controls,
+    global_grad) -> (deltas, losses, first_losses, new client controls or
+    None)`` (SCAFFOLD's and FedDANE's solves), ``global_gradient(params,
+    model_batch)`` (FedDANE's gradient round), ``wire_rows(deltas,
+    comm_state, k_up) -> (decoded rows, new comm_state)`` and
+    ``aggregate_rows(rows, w_num, wsum)``.  Deltas, rows and client
+    controls are ``{leaf name: (C, *leaf shape)}`` in leaf order."""
     downlink: Callable
     local_update: Callable
+    client_updates: Callable
+    global_gradient: Callable
     wire_rows: Callable
     aggregate_rows: Callable
 
@@ -278,20 +316,50 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
         return {n: down.roundtrip(k_down, p.reshape(-1).to(torch.float32))
                 .reshape(p.shape).to(p.dtype) for n, p in params.items()}
 
-    def local_update(params, model_batch):
+    def client_updates(params, model_batch, control=None,
+                       client_controls=None, global_grad=None):
         ddt = torch.bfloat16 if fl.delta_dtype == "bf16" else torch.float32
         deltas = {n: torch.empty((C,) + tuple(p.shape), dtype=ddt,
                                  device=p.device) for n, p in params.items()}
+        new_ci = None
+        if client_controls is not None:
+            new_ci = {n: torch.empty_like(v)
+                      for n, v in client_controls.items()}
         losses, first = [], []
         for c in range(C):
             b = {k: v[c] for k, v in model_batch.items()}
-            d, loss, first_loss = _client_update(model, fl, params, b, chunk)
+            c_i = (None if client_controls is None else
+                   {n: v[c] for n, v in client_controls.items()})
+            d, loss, first_loss, nci = _client_update(
+                model, fl, params, b, chunk, control, c_i, global_grad)
             for n, v in d.items():
                 deltas[n][c] = v
-            del d
+            if new_ci is not None:
+                for n, v in nci.items():
+                    new_ci[n][c] = v
+            del d, nci
             losses.append(loss)
             first.append(first_loss)
-        return deltas, torch.stack(losses), torch.stack(first)
+        return deltas, torch.stack(losses), torch.stack(first), new_ci
+
+    def local_update(params, model_batch):
+        return client_updates(params, model_batch)[:3]
+
+    def global_gradient(params, model_batch):
+        # each client's gradient at the broadcast params, accumulated in
+        # f32 in client order, then divided by C (the reference's f32
+        # mean over the client dim, up to the order of its reduction)
+        acc = None
+        for c in range(C):
+            b = {k: v[c] for k, v in model_batch.items()}
+            _, g = _value_and_grad(model, params, b, chunk)
+            if acc is None:
+                acc = {n: v.to(torch.float32) for n, v in g.items()}
+            else:
+                for n, v in g.items():
+                    acc[n] += v.to(torch.float32)
+            del g
+        return {n: v / C for n, v in acc.items()}
 
     def wire_rows(deltas, comm_state, k_up):
         rngs_up = k_up.split(C)
@@ -318,7 +386,9 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
                 .reshape(leaf.shape[1:]) for n, leaf in rows.items()}
 
     return Dispatch(downlink=downlink, local_update=local_update,
-                    wire_rows=wire_rows, aggregate_rows=aggregate_rows)
+                    client_updates=client_updates,
+                    global_gradient=global_gradient, wire_rows=wire_rows,
+                    aggregate_rows=aggregate_rows)
 
 
 def comm_state_init(pipe, params: dict, C: int, device):
@@ -357,10 +427,22 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         ctx["params"] = dispatch.downlink(ctx["state"].params, ctx["r_down"])
         return ctx
 
+    def hop_dane_gradient(ctx):
+        # FedDANE: one extra communication round, the clients' mean
+        # gradient at the broadcast params before the corrected local
+        # solves (the ledger bills the uplink twice)
+        ctx["global_grad"] = dispatch.global_gradient(
+            ctx["params"], Dispatch.model_batch(ctx["batch"]))
+        return ctx
+
     def hop_local_update(ctx):
-        deltas, losses, first_losses = dispatch.local_update(
-            ctx.pop("params"), Dispatch.model_batch(ctx["batch"]))
-        ctx.update(deltas=deltas, losses=losses, first_losses=first_losses)
+        st = ctx["state"]
+        deltas, losses, first_losses, new_ci = dispatch.client_updates(
+            ctx.pop("params"), Dispatch.model_batch(ctx["batch"]),
+            control=st.control, client_controls=st.client_controls,
+            global_grad=ctx.pop("global_grad", None))
+        ctx.update(deltas=deltas, losses=losses, first_losses=first_losses,
+                   new_ci=new_ci)
         return ctx
 
     def hop_cohort(ctx):
@@ -383,6 +465,33 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         avail = population.availability_mask(ctx["state"].round, ctx["ids"])
         ctx["weights"] = sel.select(fl, ctx["batch"]["sizes"],
                                     availability=avail)
+        return ctx
+
+    def hop_cmfl(ctx):
+        # CMFL: a client whose raw update agrees in sign with the previous
+        # global update on fewer than cmfl_threshold of the coordinates is
+        # irrelevant and never uploads (zero weight, so the ledger bills
+        # the reduced n_sel); every client is relevant at round 0.  The
+        # agreements are counted per leaf as integers and divided by the
+        # model's size once, in f32: up to 2^24 coordinates that is the
+        # reference's f32 mean bit for bit, and above it the integer count
+        # is the exact one (no C x model concatenation is built)
+        st, deltas, weights = ctx["state"], ctx["deltas"], ctx["weights"]
+        if st.round == 0:
+            rel = torch.ones_like(weights)
+        else:
+            agree = torch.zeros((C,), dtype=torch.int64,
+                                device=weights.device)
+            total = 0
+            for n, d in deltas.items():
+                p = st.prev_delta[n].reshape(1, -1)
+                agree += (torch.sign(d.reshape(C, -1))
+                          == torch.sign(p)).sum(1)
+                total += p.shape[1]
+            rel = agree.to(torch.float32) / torch.tensor(
+                float(total), dtype=torch.float32, device=weights.device)
+        ctx["weights"] = weights * (rel >= fl.cmfl_threshold).to(
+            weights.dtype)
         return ctx
 
     def hop_wire(ctx):
@@ -417,6 +526,27 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                    n_sel=(weights > 0).sum().to(torch.float32))
         return ctx
 
+    def hop_control(ctx):
+        # SCAFFOLD's control variates, leaf by leaf: unselected clients
+        # keep their c_i; the server control moves by n_sel / C times the
+        # weighted mean of the selected clients' c_i changes
+        st, weights = ctx["state"], ctx["weights"]
+        new_ci = ctx["new_ci"]
+        keep = [c for c, on in enumerate((weights > 0).tolist()) if not on]
+        wsum = torch.clamp(weights.sum(), min=1e-9)
+        control = {}
+        for n, new in new_ci.items():
+            old = st.client_controls[n]
+            for c in keep:
+                new[c] = old[c]
+            dci = (new - old).reshape(C, -1)
+            agg = ((weights[:, None] * dci).sum(0) / wsum).reshape(
+                new.shape[1:])
+            del dci
+            control[n] = st.control[n] + (ctx["n_sel"] / C) * agg
+        ctx["control"] = control
+        return ctx
+
     def hop_server_opt(ctx):
         st = ctx["state"]
         new_params, new_sos = server_opt.apply(fl, st.params, ctx["agg"],
@@ -439,20 +569,29 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         }
         ctx["new_state"] = FLState(
             params=ctx["new_params"], server_opt_state=ctx["new_sos"],
-            control=None, client_controls=None,
+            control=ctx.get("control"), client_controls=ctx.get("new_ci"),
             comm_state=ctx["new_comm"], rng=ctx["r_next"],
-            round=st.round + 1, prev_delta=None)
+            round=st.round + 1,
+            prev_delta=ctx["agg"] if fl.cmfl_threshold > 0 else None)
         return ctx
 
     available = population is not None and population.availability_active
     hops = [("rng", hop_rng)]
     if population is not None:
         hops.append(("cohort", hop_cohort))
-    hops += [("downlink", hop_downlink), ("local_update", hop_local_update),
-             ("select", hop_select_available if available else hop_select),
-             # a stateless pipeline keeps no per-client rows: no store
-             ("wire", hop_population_wire if store is not None else hop_wire),
-             ("server_opt", hop_server_opt), ("ledger", hop_ledger),
+    hops.append(("downlink", hop_downlink))
+    if fl.algorithm == "feddane":
+        hops.append(("dane_gradient", hop_dane_gradient))
+    hops += [("local_update", hop_local_update),
+             ("select", hop_select_available if available else hop_select)]
+    if fl.cmfl_threshold > 0:
+        hops.append(("cmfl", hop_cmfl))
+    # a stateless pipeline keeps no per-client rows: no store
+    hops.append(("wire", hop_population_wire if store is not None
+                 else hop_wire))
+    if fl.algorithm == "scaffold":
+        hops.append(("control", hop_control))
+    hops += [("server_opt", hop_server_opt), ("ledger", hop_ledger),
              ("finalize", hop_finalize)]
     return RoundProgram(hops=tuple(hops))
 
@@ -461,9 +600,13 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
                device, population=None) -> RoundEngine:
     C = topo.n_clients
     terms, up, down = ledger_terms(model, fl)
-    server_opt.check(fl.server_opt)
+    scaffold = fl.algorithm == "scaffold"
     store, aux = None, {}
     if population is not None:
+        if scaffold:
+            raise ValueError(
+                "scaffold keeps dense (C, model) client controls — "
+                "incompatible with a streaming ClientPopulation")
         if population.n_clients != C:
             raise ValueError(
                 f"population.n_clients ({population.n_clients}) must match "
@@ -471,20 +614,30 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
         C = population.cohort           # dispatch width = the cohort slice
         store = population.make_store(up, model.defs, device)
         aux = dict(population=population, cohort=C, store=store)
+    if fl.selection != "all" and min(fl.clients_per_round or C, C) < C:
+        raise not_ported(f"selection={fl.selection!r} with "
+                         f"clients_per_round={fl.clients_per_round}",
+                         "repro.core.selection")
     dispatch = make_dispatch(model, fl, up, down, C, chunk)
     program = _build_server_program(fl, terms, dispatch, C,
                                     population=population, store=store,
                                     device=device)
 
     def state_from_params(params):
+        def zeros(lead=()):
+            return {n: torch.zeros(lead + tuple(p.shape),
+                                   dtype=torch.float32, device=p.device)
+                    for n, p in params.items()}
         return FLState(
             params=params,
             server_opt_state=server_opt.init_state(fl.server_opt, params),
-            control=None, client_controls=None,
+            control=zeros() if scaffold else None,
+            client_controls=zeros((C,)) if scaffold else None,
             comm_state=(store.init() if store is not None
                         else comm_state_init(up, params, C, device)
                         if up.stateful else None),
-            rng=PRNGKey(fl.seed), round=0)
+            rng=PRNGKey(fl.seed), round=0,
+            prev_delta=zeros() if fl.cmfl_threshold > 0 else None)
 
     def init_fn(seed=0):
         return state_from_params(model.init(seed, device))
@@ -536,19 +689,60 @@ def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
         raise ValueError("sim topology needs n_clients > 0")
     if population is None:
         _check_population(fl, topology)
-    return _build_sim(model, fl, topology, chunk, dev, population=population)
+    engine = _build_sim(model, fl, topology, chunk, dev,
+                        population=population)
+    engine.eval_every = max(1, int(fl.eval_every))
+    return engine
 
 
-def run_rounds(engine: RoundEngine, state, data_fn, n: int):
+def _gated_metrics(tmpl: dict, base: dict) -> dict:
+    """A skipped round's metrics: each key of the metrics_fn output
+    ``tmpl`` that the base metrics hold with the same shape and dtype
+    keeps the base value; an eval-only key is NaN (0 for integer dtypes),
+    as the reference's ``_gated_metrics`` fills it."""
+    out = {}
+    for k, t in tmpl.items():
+        b = base.get(k)
+        if not isinstance(t, torch.Tensor) or (
+                isinstance(b, torch.Tensor) and b.shape == t.shape
+                and b.dtype == t.dtype):
+            out[k] = b
+        else:
+            fill = float("nan") if t.dtype.is_floating_point else 0
+            out[k] = torch.full(t.shape, fill, dtype=t.dtype,
+                                device=t.device)
+    return out
+
+
+def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
+               eval_every=None):
     """Run ``n`` rounds; ``data_fn(round_idx) -> batch``.  Returns
     ``(final_state, metrics)`` with every metric stacked over a leading
-    (n,) round dim (the ledger as a CommLedger of (n,) tensors)."""
+    (n,) round dim (the ledger as a CommLedger of (n,) tensors).
+
+    ``metrics_fn(new_state, metrics) -> metrics`` (optional) appends
+    per-round metrics such as a held-out eval loss.  It runs every
+    ``eval_every``-th round (default the engine's ``FLConfig.eval_every``):
+    the last of each cadence window, where the pre-round ``state.round %
+    eval_every == eval_every - 1``, so a run whose length is a multiple of
+    the cadence evaluates its final round.  On the other rounds its
+    eval-only float metrics are NaN."""
     if n <= 0:
         return state, None
-    rows = []
+    ee = max(1, int(engine.eval_every if eval_every is None else eval_every))
+    rows, tmpl = [], None
     for _ in range(n):
+        due = state.round % ee == ee - 1
         state, m = engine.round_fn(state, data_fn(state.round))
-        rows.append(m)
+        if metrics_fn is not None and due:
+            m = metrics_fn(state, m)
+            tmpl = m
+        rows.append((m, metrics_fn is not None and not due))
+    if tmpl is None and metrics_fn is not None:
+        # no round of this run was due: the output's keys, shapes and
+        # dtypes from one call on the final state, its values unused
+        tmpl = metrics_fn(state, rows[-1][0])
+    rows = [_gated_metrics(tmpl, m) if skipped else m for m, skipped in rows]
     metrics = {k: torch.stack([m[k] for m in rows])
                for k in rows[0] if k != "ledger"}
     led = {k: torch.stack([m["ledger"].fields()[k] for m in rows])

@@ -6,6 +6,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import torch
+
 from repro_torch.core.engine import Topology, make_round_engine
 from repro_torch.core.types import FLConfig
 from repro_torch.models.model import Model
@@ -28,3 +30,11 @@ def make_sim_step(model: Model, fl: FLConfig, n_clients: int,
                  n_clients=engine.n_clients, terms=engine.terms,
                  engine=engine)
 
+
+
+def evaluate(model: Model, params, batch, chunk=64) -> float:
+    """The model's mean loss on ``batch`` (e.g. ``data.synthetic
+    .eval_batch``'s held-out batch) at ``params``, as a Python float."""
+    with torch.no_grad():
+        loss, _ = model.loss(params, batch, chunk=chunk)
+    return float(loss)

@@ -111,7 +111,7 @@ class ArchConfig:
 class FLConfig:
     """The reference's FL knobs, same names and defaults."""
 
-    algorithm: str = "fedavg"         # fedavg|fedsgd|fedprox (scaffold|feddane: JAX only)
+    algorithm: str = "fedavg"         # fedavg|fedsgd|fedprox|scaffold|feddane
     local_steps: int = 1
     local_lr: float = 0.05
     fedprox_mu: float = 0.0

@@ -45,13 +45,20 @@ def client_tables(cfg: FedDataConfig, device):
     G = torch.randn((V, V), generator=_gen(cfg.seed, 0, device), **f32) * 1.5
     P = torch.randn((cfg.num_clusters, V, V),
                     generator=_gen(cfg.seed, 1, device), **f32) * 2.0
-    z = torch.randint(0, cfg.num_clusters, (C,),
-                      generator=_gen(cfg.seed, 2, device), device=device)
+    z = client_clusters(cfg, device)
     gamma = torch.randn((C, V), generator=_gen(cfg.seed, 3, device),
                         **f32) * 1.5 * cfg.client_skew
     logits = G[None] + cfg.heterogeneity * (P[z] + gamma[:, None, :])
     sizes = 1.0 + torch.rand((C,), generator=_gen(cfg.seed, 4, device), **f32)
     return logits, sizes
+
+
+def client_clusters(cfg: FedDataConfig, device=None):
+    """Each client's ground-truth generator cluster (C,) int64, the ``z``
+    of :func:`client_tables` (for FL+HC recovery experiments)."""
+    dev = resolve_device(device)
+    return torch.randint(0, cfg.num_clusters, (cfg.num_clients,),
+                         generator=_gen(cfg.seed, 2, dev), device=dev)
 
 
 def sample_round(cfg: FedDataConfig, seed: int, device=None):
@@ -60,10 +67,28 @@ def sample_round(cfg: FedDataConfig, seed: int, device=None):
     ported selection policy reads them).  ``seed`` picks the round's
     draws."""
     dev = resolve_device(device)
+    return _sample(cfg, _gen(cfg.seed, 1_000 + int(seed), dev), dev)
+
+
+def eval_batch(cfg: FedDataConfig, seed: int, batch_size: int = 32,
+               device=None):
+    """A held-out batch from the same generator tables (same
+    ``cfg.seed``), flattened across clients: tokens/labels/mask of shape
+    (C * batch_size, S), evaluating the global model on the full client
+    mixture.  Its draws come from a stream of their own (``seed`` picks
+    them), which no round's batch shares."""
+    dev = resolve_device(device)
+    g = Key(cfg.seed).fold_in(-1).fold_in(int(seed)).generator(dev)
+    b = _sample(dataclasses.replace(cfg, batch_per_client=batch_size), g,
+                dev)
+    return {k: b[k].reshape((-1,) + tuple(b[k].shape[2:]))
+            for k in ("tokens", "labels", "mask")}
+
+
+def _sample(cfg: FedDataConfig, g: torch.Generator, dev):
     logits, sizes = client_tables(cfg, dev)
     C, B, S = cfg.num_clients, cfg.batch_per_client, cfg.seq_len
     V = logits.shape[-1]
-    g = _gen(cfg.seed, 1_000 + int(seed), dev)
     probs = torch.softmax(logits, dim=-1)                 # (C, V, V)
     cidx = torch.arange(C, device=dev)[:, None].expand(C, B)
     tok = torch.randint(0, V, (C, B), generator=g, device=dev)

@@ -15,11 +15,21 @@ residual store of ``--store-capacity`` slots that evicts by
         --compressor "topk:0.05>>qsgd:8" --backend kernel --seq 48 \\
         --batch-per-client 4 --rounds 4
 
+``--algorithm`` takes fedavg, fedsgd, fedprox, scaffold (control
+variates) or feddane (a gradient round before the corrected solves);
+``--server-opt`` fedavg, fedavgm, fedadam or fedyogi.  The sim path
+evaluates the global model on a held-out batch (``eval_batch``) every
+``--eval-every`` rounds (0: every 8, the reference's default chunk) and
+prints it as ``eval=`` on that round's line:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \
+        --algorithm scaffold --server-opt fedadam --eval-every 2
+
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
 ``--device cpu`` is given.  The reference CLI's mesh, async, scenario
-(other than ``--scenario-availability`` under ``--population``), tracing,
-selection and server-optimizer options are not ported yet; ``--async``
-and the other ``--scenario-*`` flags raise.
+(other than ``--scenario-availability`` under ``--population``), tracing
+and selection options are not ported yet; ``--async`` and the other
+``--scenario-*`` flags raise.
 """
 from __future__ import annotations
 
@@ -48,6 +58,11 @@ def _parse(argv=None):
     ap.add_argument("--backend", default="jax", choices=["jax", "kernel"],
                     help="encode backend for every wire hop: jax = the "
                          "plain PyTorch path, kernel = the CUDA kernels")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="held-out-eval cadence in rounds "
+                         "(FLConfig.eval_every); 0 = every 8 rounds")
+    ap.add_argument("--server-opt", default="fedavg",
+                    help="fedavg, fedavgm, fedadam or fedyogi")
     ap.add_argument("--population", type=int, default=0,
                     help="simulate this many clients on the streaming "
                          "ClientPopulation path: per-round cohorts and a "
@@ -84,7 +99,8 @@ def main(argv=None):
     from repro_torch.core.engine import run_rounds
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
-    from repro_torch.data.synthetic import FedDataConfig, sample_round
+    from repro_torch.data.synthetic import (FedDataConfig, eval_batch,
+                                            sample_round)
     from repro_torch.device import not_ported, resolve_device
     from repro_torch.models.model import Model
 
@@ -102,6 +118,8 @@ def main(argv=None):
     fl = FLConfig(algorithm=args.algorithm, local_steps=args.local_steps,
                   local_lr=args.local_lr, uplink_compressor=args.compressor,
                   downlink_compressor=args.downlink, backend=args.backend,
+                  server_opt=args.server_opt,
+                  eval_every=args.eval_every if args.eval_every > 0 else 8,
                   seed=args.seed)
     if args.population > 0:
         return _population(args, cfg, model, fl, device)
@@ -114,19 +132,32 @@ def main(argv=None):
     print(f"sim arch={cfg.name} clients={args.clients} "
           f"params={model.param_count():,} device={device} "
           f"uplink={args.compressor} downlink={args.downlink} "
-          f"backend={args.backend}", flush=True)
+          f"backend={args.backend} algorithm={args.algorithm} "
+          f"server_opt={args.server_opt} eval_every={fl.eval_every}",
+          flush=True)
+    ev = eval_batch(data, 99, batch_size=4, device=device)
+
+    def metrics_fn(st, m):
+        # the held-out loss of the global model, on the rounds that
+        # run_rounds' cadence gates in
+        with torch.no_grad():
+            loss = model.loss(st.params, ev, chunk=args.seq)[0]
+        return dict(m, eval_loss=loss)
+
     state = sim.init_fn(args.seed)
     t0 = time.perf_counter()
     state, ms = run_rounds(sim.engine, state,
                            lambda r: sample_round(data, r, device),
-                           args.rounds)
+                           args.rounds, metrics_fn=metrics_fn)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0
     for i in range(args.rounds):
+        ev_loss = float(ms["eval_loss"][i])
         print(f"round {i:>3} loss={float(ms['loss'][i]):.3f} "
               f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB "
-              f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x",
+              f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x"
+              + (f" eval={ev_loss:.3f}" if ev_loss == ev_loss else ""),
               flush=True)
     print(f"{args.rounds} rounds in {secs:.2f}s on {device}")
     return state, ms

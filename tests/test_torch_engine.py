@@ -196,11 +196,17 @@ def test_sim_rounds_match_reference_engine(spec):
 
 
 @pytest.mark.parametrize("algorithm,steps,mu", [("fedavg", 1, 0.0),
-                                                ("fedprox", 2, 0.1)])
+                                                ("fedprox", 2, 0.1),
+                                                ("scaffold", 2, 0.0),
+                                                ("feddane", 3, 0.01)])
 def test_client_update_matches_reference(algorithm, steps, mu):
-    """One client's local solve (the E = 1 fast path, and the E-step loop
-    with fedprox's proximal term; fedavg's E = 2 loop runs in the round
-    test above): deltas within rtol 1e-4 / atol 1e-7."""
+    """One client's local solve (the E = 1 fast path, the E-step loop with
+    fedprox's proximal term, SCAFFOLD's control-corrected steps and its
+    new c_i, FedDANE's corrected steps from a given global gradient;
+    fedavg's E = 2 loop runs in the round test above), the controls and
+    the global gradient numpy-seeded: deltas within rtol 1e-4 / atol 1e-7,
+    and c_i within that tolerance carried through ``c_i - c - delta /
+    (E * lr)`` (an error e in delta is e / (E * lr) in c_i)."""
     mj, mt = ModelJax(get_arch_jax("paper_lm")), Model(get_arch("paper_lm"))
     kw = dict(algorithm=algorithm, local_steps=steps, local_lr=0.2,
               fedprox_mu=mu)
@@ -208,13 +214,34 @@ def test_client_update_matches_reference(algorithm, steps, mu):
     params_j = mj.init(jax.random.PRNGKey(5))
     b = {k: v[0] for k, v in _batches()[0].items()
          if k in ("tokens", "labels", "mask")}
-    d_j, loss_j, _, _ = jax.jit(lambda p: EJ._client_update(
+    rng = np.random.default_rng(6)
+    tree = lambda: jax.tree.map(
+        lambda p: (rng.standard_normal(p.shape) * 1e-2).astype(np.float32),
+        jax.tree.map(np.asarray, params_j))
+    control = c_i = gg = None
+    if algorithm == "scaffold":
+        control, c_i = tree(), tree()
+    if algorithm == "feddane":
+        gg = tree()
+    # XLA's optimization level 0 compiles the solve in about 60% of the
+    # time; the comparison is at rtol 1e-4 either way
+    d_j, loss_j, _, ci_j = jax.jit(lambda p, c, ci, g: EJ._client_update(
         mj, flj, p, {k: jnp.asarray(v) for k, v in b.items()},
-        jax.random.PRNGKey(0), None, None, SEQ))(params_j)
-    d_t, loss_t, _ = ET._client_update(
+        jax.random.PRNGKey(0), c, ci, SEQ, global_grad=g),
+        compiler_options={"xla_backend_optimization_level": 0})(
+            params_j, control, c_i, gg)
+    port = lambda t: None if t is None else params_from_jax(t)
+    d_t, loss_t, _, ci_t = ET._client_update(
         mt, flt, params_from_jax(jax.tree.map(np.asarray, params_j)),
-        _port_batch(b), SEQ)
+        _port_batch(b), SEQ, port(control), port(c_i), port(gg))
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
     for (name, a), e in zip(d_t.items(), _tree_np(d_j)):
         np.testing.assert_allclose(a.numpy(), e, rtol=1e-4, atol=1e-7,
                                    err_msg=name)
+    assert (ci_t is None) == (ci_j is None)
+    if ci_t is not None:
+        for (name, a), e, d in zip(ci_t.items(), _tree_np(ci_j),
+                                   _tree_np(d_j)):
+            bound = (1e-7 + 1e-4 * np.abs(d)) / (steps * 0.2) \
+                + 1e-4 * np.abs(e)
+            assert (np.abs(a.numpy() - e) <= bound).all(), f"c_i {name}"

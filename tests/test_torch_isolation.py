@@ -58,8 +58,9 @@ def test_unported_knobs_raise_naming_the_reference_module():
     from repro_torch.core.types import FLConfig
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
-    for kw, module in ((dict(algorithm="scaffold"), "repro.core.engine"),
-                       (dict(server_opt="fedadam"), "repro.core.server_opt"),
+    for kw, module in ((dict(selection="random", clients_per_round=1),
+                        "repro.core.selection"),
+                       (dict(dp_sigma=1.0), "repro.compress.secure_agg"),
                        (dict(telemetry=True), "repro.obs.telemetry"),
                        (dict(secure_agg=True), "repro.compress.secure_agg"),
                        (dict(scenario_dropout=0.1), "repro.core.scenario")):
