@@ -101,12 +101,35 @@ line is printed):
      GiB, printed beside the card's name and power limit.  Phases 7-7c
      print each run's round times, losses, eval losses and ``selected``;
      one kernel run a phase (7: FedAdam) profiles its last round;
-  8. the ``kernels`` JSON line: launch counts are those of the main-path
-     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c), each counted
-     from 0 just before its phase (the count sketch's by path too, each of
-     which must launch); the pack and unpack kernels are on no path and
-     count their phase-3 calls;
-  9. last line: ``{"ok": true, "device": {...}}``.
+  8. slice 7's selection (the reference's ``bench_selection``): paper_lm,
+     16 clients, 4 per round, E=2, lr 0.2, seq 32, batch 2, 3 rounds of
+     ``random``, ``power_of_choice`` and ``multi_criteria`` on EF
+     ``topk:0.05>>qsgd:8``, with the held-out eval on the last round, both
+     backends: bit-identical, ``selected`` 4 every round, every ledger
+     term 4 times one client's; the first policy's kernel run profiles its
+     last round;
+  9. slice 7's async engine on paper_lm (``bench_async``'s knobs: 8
+     slots, seq 48, batch 4, heterogeneity 2.0, E=2, lr 0.2, alpha 0.5, EF
+     ``topk:0.05>>qsgd:8``), both backends: the degenerate run (constant
+     latency, K = 8, 2 generations) bit-identical to the sync run of the
+     same config; FedBuff K = 4 under ``heavy_tail`` with FedAdam, FedAsync
+     K = 1 under ``uniform`` and K = 8 with a deadline of the median
+     ``resource`` latency, 32 events each; then ``bench_scale``'s async leg
+     (100,000 clients, stride cohorts of 16, a 64-slot store, K = 4,
+     ``heavy_tail``, 32 events).  Each run prints its event order, flush
+     count and final clock; the backends are bit-identical in every state
+     tensor and metric;
+  9b. llama3_2_1b at full width and depth, async: 2 slots, FedAsync (K =
+     1) under ``heavy_tail``, EF ``topk:0.05>>qsgd:4@fused``, seq 128,
+     batch 1, E=1, 6 events through the kernels: finite losses, a flush
+     every event, the peak memory under 76 GiB with the hop that last
+     raised it, each event's time and the last event's busy share;
+  10. the ``kernels`` JSON line: launch counts are those of the main-path
+     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b),
+     each counted from 0 just before its phase (the count sketch's by path
+     too, each of which must launch); the pack and unpack kernels are on
+     no path and count their phase-3 calls;
+  11. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -218,6 +241,28 @@ LLAMA_ALGO_RUNS = (
      dict(algorithm="scaffold", uplink_compressor="qsgd:4@fused"), 2, 2, 2,
      ("qsgd_pack",)),
 )
+# slice 7's path: bench_selection (benchmarks/run.py:621), bench_async's
+# knobs (:349-392) and bench_scale's async leg (:493-512)
+SEL_CLIENTS, SEL_PER_ROUND, SEL_SEQ, SEL_BATCH, SEL_ROUNDS = 16, 4, 32, 2, 3
+SEL_POLICIES = ("random", "power_of_choice", "multi_criteria")
+SEL_SPEC = "topk:0.05>>qsgd:8"
+ASYNC_SLOTS, ASYNC_SEQ, ASYNC_BATCH, ASYNC_EVENTS = 8, 48, 4, 32
+ASYNC_FL = dict(uplink_compressor="topk:0.05>>qsgd:8", staleness_alpha=0.5)
+# (label, Topology.async_ knobs, FLConfig knobs); "median" is the median
+# fault-free (resource) latency of the clients, bench_async's deadline
+ASYNC_RUNS = (
+    ("FedBuff K=4 heavy_tail FedAdam",
+     dict(buffer_size=4, latency_profile="heavy_tail"),
+     dict(server_opt="fedadam", server_lr=0.05)),
+    ("FedAsync K=1 uniform", dict(buffer_size=1, latency_profile="uniform"),
+     {}),
+    ("FedBuff K=8 deadline", dict(buffer_size=8, latency_profile="heavy_tail",
+                                  flush_deadline="median"), {}),
+)
+ASYNC_POP = dict(n_clients=100_000, cohort=16, capacity=64, sampler="stride")
+ASYNC_POP_K = 4
+LLAMA_ASYNC = dict(slots=2, buffer_size=1, latency_profile="heavy_tail",
+                   spec="topk:0.05>>qsgd:4@fused", events=6)
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -1605,6 +1650,377 @@ def llama_algorithm_phase(dev, tag):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9b: client selection and the async engine
+# ---------------------------------------------------------------------------
+
+def selection_phase(dev):
+    """Slice 7's selection on paper_lm: each policy on both backends,
+    bit-identical, exactly 4 selected every round and billed."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    print(f"paper_lm selection: {SEL_CLIENTS} clients, {SEL_PER_ROUND} per "
+          f"round, seq {SEL_SEQ}, batch {SEL_BATCH}, {SEL_ROUNDS} rounds, "
+          f"E=2 lr=0.2, EF {SEL_SPEC}, the held-out eval on the last round",
+          flush=True)
+    for policy in SEL_POLICIES:
+        runs = {}
+        for backend in ("kernel", "jax"):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            # the held-out eval on the last round only; the first policy's
+            # kernel run profiles its last round
+            sim, state, ms, times, prof, _ = run_algorithm(
+                model, dict(uplink_compressor=SEL_SPEC, selection=policy,
+                            clients_per_round=SEL_PER_ROUND),
+                backend, SEL_CLIENTS, SEL_SEQ, SEL_BATCH, SEL_ROUNDS,
+                SEL_ROUNDS, dev, 2, 0.2,
+                profiled=backend == "kernel" and policy == SEL_POLICIES[0])
+            secs = time.perf_counter() - t0
+            what = f"paper_lm selection={policy} backend={backend}"
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, ("threshold_sparsify", "qsgd_quantize")
+                           if backend == "kernel" else (), what)
+            losses = check_finite(ms, state, what)
+            selected = [int(v) for v in ms["selected"]]
+            if selected != [SEL_PER_ROUND] * SEL_ROUNDS:
+                fail(f"{what}: selected {selected}, not {SEL_PER_ROUND} "
+                     f"every round")
+            check_ledger(sim, ms, SEL_PER_ROUND, what)
+            check_eval_cadence(ms, SEL_ROUNDS, SEL_ROUNDS, what)
+            print(f"{what}: loss per round {fmt(losses)}, eval loss "
+                  f"{fmt(ms['eval_loss'])}, selected {selected}, up "
+                  f"{fmt(ms['ledger'].uplink_wire)} B ({SEL_PER_ROUND} x "
+                  f"{sim.terms['up_wire']:,.0f}), launches {ran}, round "
+                  f"times {', '.join(f'{t:.3f}' for t in times)} s "
+                  f"({secs:.2f}s in all)", flush=True)
+            if prof is not None:
+                print_profile(prof, times[-1], f"{what}, last round", top=6)
+            runs[backend] = (state, ms)
+        (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
+        pairs = (list(zip(_tensors(sk.params), _tensors(sp.params)))
+                 + list(zip(_tensors(sk.comm_state), _tensors(sp.comm_state)))
+                 + [(getattr(mk["ledger"], f), getattr(mp["ledger"], f))
+                    for f in mk["ledger"].fields()]
+                 + [(mk[k], mp[k]) for k in ("loss", "loss_all", "selected",
+                                             "eval_loss")])
+        for a, b in pairs:
+            if not same_bits(a, b):
+                fail(f"paper_lm selection={policy}: kernel backend differs "
+                     f"from the plain backend")
+        print(f"paper_lm selection={policy}: kernel and plain backends "
+              f"bit-identical ({len(pairs)} tensors: params, EF residuals, "
+              f"ledger, losses, selected)", flush=True)
+
+
+def async_data(model, n_clients, seq, batch, dev, population=None):
+    from repro_torch.data.pipeline import cohort_data_fn
+    from repro_torch.data.synthetic import FedDataConfig, sample_round
+
+    data = FedDataConfig(vocab_size=model.cfg.vocab_size,
+                         num_clients=n_clients, seq_len=seq,
+                         batch_per_client=batch, heterogeneity=2.0)
+    if population is not None:
+        return data, cohort_data_fn(population, data, dev)
+    return data, lambda v: sample_round(data, v, dev)
+
+
+def stack_metrics(metrics):
+    from repro_torch.core.types import CommLedger
+    ms = {k: torch.stack([m[k] for m in metrics])
+          for k in metrics[0] if k != "ledger"}
+    ms["ledger"] = CommLedger(**{
+        f: torch.stack([m["ledger"].fields()[f] for m in metrics])
+        for f in metrics[0]["ledger"].fields()})
+    return ms
+
+
+def run_async(model, fl_kw, topo_kw, backend, slots, seq, batch, events,
+              dev, local_steps, local_lr, population=None, profiled=False):
+    """``events`` server events of ``make_round_engine(Topology.async_)``
+    after its init.  Records each event's popped slot (and, over a
+    population, the client it hosts), the event's wall time (host clock,
+    synchronised) and the init's; with ``profiled`` the last event runs
+    under ``torch.profiler``.  Returns (engine, state, stacked metrics,
+    order, arriving ids, event times, init time, peak after the init
+    (GiB), the profiler or None, the peak hop log)."""
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.types import FLConfig
+
+    fl = FLConfig(backend=backend, local_steps=local_steps,
+                  local_lr=local_lr, **fl_kw)
+    N = population.n_clients if population is not None else slots
+    _, data_fn = async_data(model, N, seq, batch, dev, population)
+    engine = make_round_engine(model, fl, Topology.async_(N, **topo_kw),
+                               chunk=seq, device=dev, data_fn=data_fn,
+                               population=population)
+    program = engine.round_fn
+    order, arrived = [], []
+    pop_hop = dict(program.hops)["pop"]
+
+    def recording_pop(ctx):
+        ctx = pop_hop(ctx)
+        order.append(ctx["c"])
+        if population is not None:
+            arrived.append(int(ctx["state"].async_state["slot_client"]
+                               [ctx["c"]]))
+        return ctx
+    program.hops = tuple((n, recording_pop if n == "pop" else f)
+                         for n, f in program.hops)
+    peak_log = watch_peak(program)
+    t0 = time.perf_counter()
+    state = engine.init_fn(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    times, metrics, prof = [], [], None
+    for e in range(events):
+        if profiled and e == events - 1:
+            prof = profiled_if(True)
+            prof.start()
+        t0 = time.perf_counter()
+        state, m = program(state, None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.stop()
+        if population is not None and arrived[-1] not in \
+                state.comm_state["client"].tolist():
+            fail(f"event {e}: client {arrived[-1]} is not in the store "
+                 f"after its arrival")
+        metrics.append(m)
+    return (engine, state, stack_metrics(metrics), order, arrived, times,
+            init_s, init_peak, prof, peak_log)
+
+
+def async_tensors(state, ms):
+    """Every tensor of an async run: params, server moments, comm_state or
+    store, the async state, then the per-event metrics and ledger."""
+    return (_tensors(state.params) + _tensors(state.server_opt_state)
+            + _tensors(state.comm_state) + _tensors(state.async_state)
+            + [ms[k] for k in ("loss", "clock", "staleness",
+                               "server_version", "flushed", "buffer_fill")]
+            + list(ms["ledger"].fields().values()))
+
+
+def check_async_run(engine, ms, what, slots):
+    """Per-event invariants: the clock never runs back, every staleness is
+    >= 0, the server version counts the flushes, every event bills one
+    upload and each flush one downlink per re-dispatched slot."""
+    clock = ms["clock"]
+    if not bool((clock[1:] >= clock[:-1]).all()):
+        fail(f"{what}: the virtual clock ran back {clock.tolist()}")
+    if float(ms["staleness"].min()) < 0:
+        fail(f"{what}: negative staleness")
+    flushes = int(ms["flushed"].sum())
+    if int(ms["server_version"][-1]) != flushes:
+        fail(f"{what}: server version {int(ms['server_version'][-1])} != "
+             f"{flushes} flushes")
+    terms = engine.terms
+    up = torch.tensor(terms["up_wire"], dtype=torch.float32)
+    if not torch.equal(ms["ledger"].uplink_wire, up.expand_as(clock)):
+        fail(f"{what}: an event does not bill exactly one upload")
+    down = ms["ledger"].downlink_wire
+    if bool(((down > 0) != (ms["flushed"] > 0)).any()) or \
+            float(down.max()) > slots * terms["down_wire"]:
+        fail(f"{what}: downlink billed off the flushes")
+    return flushes
+
+
+def async_line(ms, order, times, init_s):
+    return (f"event order {order}, {int(ms['flushed'].sum())} flushes, "
+            f"staleness {[int(v) for v in ms['staleness']]}, final clock "
+            f"{float(ms['clock'][-1]):.4f}, loss {float(ms['loss'][-1]):.6f}"
+            f"; init {init_s:.2f}s, events {sum(times):.2f}s (max "
+            f"{max(times):.3f}s)")
+
+
+def async_phase(dev):
+    """Slice 7's async engine on paper_lm: the degenerate run against the
+    sync run, FedBuff, FedAsync and the deadline flush, then the
+    population leg; every run on both backends, bit-identical."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import Topology, make_round_engine, \
+        run_rounds
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.pipeline import device_latency
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    kernels = ("threshold_sparsify", "qsgd_quantize")
+    data, data_fn = async_data(model, ASYNC_SLOTS, ASYNC_SEQ, ASYNC_BATCH,
+                               dev)
+    res = data_fn(0)["resources"].cpu()
+    median = float(np.median(device_latency("resource", res, None).numpy()))
+    print(f"paper_lm async: {ASYNC_SLOTS} slots, seq {ASYNC_SEQ}, batch "
+          f"{ASYNC_BATCH}, heterogeneity 2.0, E=2 lr=0.2, {ASYNC_FL}; "
+          f"median resource latency {median:.6f}", flush=True)
+    degenerate = ("degenerate K=8 constant",
+                  dict(buffer_size=ASYNC_SLOTS, latency_profile="constant"),
+                  {})
+    for label, topo_kw, fl_kw in (degenerate,) + ASYNC_RUNS:
+        if topo_kw.get("flush_deadline") == "median":
+            topo_kw = dict(topo_kw, flush_deadline=median)
+        events = (2 * ASYNC_SLOTS if label == degenerate[0]
+                  else ASYNC_EVENTS)
+        runs = {}
+        for backend in ("kernel", "jax"):
+            what = f"paper_lm async {label} backend={backend}"
+            before = launch_counts()
+            t0 = time.perf_counter()
+            engine, state, ms, order, _, times, init_s, _, prof, _ = \
+                run_async(model, dict(ASYNC_FL, **fl_kw), topo_kw, backend,
+                          ASYNC_SLOTS, ASYNC_SEQ, ASYNC_BATCH, events, dev,
+                          2, 0.2, profiled=backend == "kernel")
+            secs = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, kernels if backend == "kernel" else (), what)
+            check_finite(ms, state, what)
+            flushes = check_async_run(engine, ms, what, ASYNC_SLOTS)
+            K = topo_kw["buffer_size"]
+            if K == 1 and flushes != events:
+                fail(f"{what}: FedAsync flushed {flushes} of {events} events")
+            if "flush_deadline" not in topo_kw and K > 1 and \
+                    flushes != events // K:
+                fail(f"{what}: {flushes} flushes, not {events // K}")
+            if "flush_deadline" in topo_kw and flushes <= events // K:
+                fail(f"{what}: the deadline drove no flush ({flushes})")
+            print(f"{what}: {async_line(ms, order, times, init_s)}; "
+                  f"launches {ran} ({secs:.2f}s)", flush=True)
+            if prof is not None:
+                print_profile(prof, times[-1], f"{what}, last event", top=6)
+            runs[backend] = (state, ms)
+        pairs = list(zip(async_tensors(*runs["kernel"]),
+                         async_tensors(*runs["jax"])))
+        for a, b in pairs:
+            if not same_bits(a, b):
+                fail(f"paper_lm async {label}: kernel backend differs from "
+                     f"the plain backend")
+        print(f"paper_lm async {label}: kernel and plain backends "
+              f"bit-identical ({len(pairs)} tensors)", flush=True)
+        if label != degenerate[0]:
+            continue
+        # the degenerate contract: the sync run of the same config
+        sa, ma = runs["kernel"]
+        fl = FLConfig(backend="kernel", local_steps=2, local_lr=0.2,
+                      **ASYNC_FL)
+        sync = make_round_engine(model, fl, Topology.sim(ASYNC_SLOTS),
+                                 chunk=ASYNC_SEQ, device=dev)
+        ss, msy = run_rounds(sync, sync.init_fn(0), data_fn, 2)
+        pairs = (list(zip(_tensors(sa.params), _tensors(ss.params)))
+                 + list(zip(_tensors(sa.comm_state),
+                            _tensors(ss.comm_state)))
+                 + [(ma["loss"][ASYNC_SLOTS - 1::ASYNC_SLOTS].to(dev),
+                     msy["loss"]),
+                    (ma["ledger"].uplink_wire.reshape(2, -1).sum(1)
+                     .to(dev), msy["ledger"].uplink_wire),
+                    (ma["ledger"].downlink_wire[ASYNC_SLOTS - 1::ASYNC_SLOTS]
+                     .to(dev), msy["ledger"].downlink_wire)])
+        for a, b in pairs:
+            if not torch.equal(a, b):
+                fail("paper_lm async degenerate: differs from the sync run")
+        if order != list(range(ASYNC_SLOTS)) * 2:
+            fail(f"paper_lm async degenerate: event order {order}")
+        print(f"paper_lm async degenerate: equal to the sync run bit for "
+              f"bit ({len(pairs)} tensors: params, EF residuals, the flush "
+              f"losses, the ledger per generation)", flush=True)
+
+    # the population leg (bench_scale's async leg)
+    runs = {}
+    for backend in ("kernel", "jax"):
+        pop = ClientPopulation(**ASYNC_POP)
+        what = (f"paper_lm async population={pop.n_clients:,} cohort="
+                f"{pop.cohort} capacity={pop.capacity} K={ASYNC_POP_K} "
+                f"heavy_tail backend={backend}")
+        before = launch_counts()
+        t0 = time.perf_counter()
+        engine, state, ms, order, arrived, times, init_s, _, prof, _ = \
+            run_async(model, ASYNC_FL, dict(buffer_size=ASYNC_POP_K,
+                                            latency_profile="heavy_tail"),
+                      backend, 0, ASYNC_SEQ, ASYNC_BATCH, ASYNC_EVENTS, dev,
+                      2, 0.2, population=pop, profiled=backend == "kernel")
+        secs = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        check_launches(ran, kernels if backend == "kernel" else (), what)
+        check_finite(ms, state, what)
+        flushes = check_async_run(engine, ms, what, pop.cohort)
+        if flushes != ASYNC_EVENTS // ASYNC_POP_K:
+            fail(f"{what}: {flushes} flushes")
+        print(f"{what}: {async_line(ms, order, times, init_s)}; arriving "
+              f"clients {arrived[:8]}...; store resident "
+              f"{int((state.comm_state['client'] >= 0).sum())} of "
+              f"{pop.capacity}; launches {ran} ({secs:.2f}s)", flush=True)
+        if prof is not None:
+            print_profile(prof, times[-1], f"{what}, last event", top=6)
+        runs[backend] = (state, ms)
+    pairs = list(zip(async_tensors(*runs["kernel"]),
+                     async_tensors(*runs["jax"])))
+    for a, b in pairs:
+        if not same_bits(a, b):
+            fail("paper_lm async population: kernel backend differs from "
+                 "the plain backend")
+    print(f"paper_lm async population: kernel and plain backends "
+          f"bit-identical ({len(pairs)} tensors)", flush=True)
+
+
+def llama_async_phase(dev):
+    """llama3_2_1b at full width and depth on the async engine: FedAsync
+    over 2 slots through the kernels, the peak memory under 76 GiB."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    model = Model(cfg)
+    kw = dict(LLAMA_ASYNC)
+    what = (f"llama3_2_1b async {kw['slots']} slots K={kw['buffer_size']} "
+            f"{kw['latency_profile']} EF {kw['spec']}")
+    print(f"{what}: {model.param_count():,} params, {cfg.num_layers} layers "
+          f"(no depth cut), seq {LLAMA_SEQ}, batch {LLAMA_BATCH}, E=1, "
+          f"{kw['events']} events, backend=kernel", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    engine, state, ms, order, _, times, init_s, init_peak, prof, peak_log = \
+        run_async(model, dict(uplink_compressor=kw["spec"]),
+                  dict(buffer_size=kw["buffer_size"],
+                       latency_profile=kw["latency_profile"]), "kernel",
+                  kw["slots"], LLAMA_SEQ, LLAMA_BATCH, kw["events"], dev, 1,
+                  0.05, profiled=True)
+    secs = time.perf_counter() - t0
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    check_launches(ran, ("threshold_sparsify", "qsgd_pack"), what)
+    check_finite(ms, state, what)
+    flushes = check_async_run(engine, ms, what, kw["slots"])
+    if flushes != kw["events"]:
+        fail(f"{what}: {flushes} flushes in {kw['events']} events")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if peak >= LLAMA_PEAK_GIB:
+        fail(f"{what}: peak memory {peak:.1f} GiB, not under "
+             f"{LLAMA_PEAK_GIB} GiB")
+    state_gib = {f: round(sum(t.numel() * t.element_size()
+                              for t in _tensors(v)) / 2**30, 2)
+                 for f, v in (("params", state.params),
+                              ("comm_state", state.comm_state),
+                              ("pending_comm",
+                               state.async_state.get("pending_comm")),
+                              ("updates", state.async_state["updates"]))}
+    print(f"{what}: {async_line(ms, order, times, init_s)}; event times "
+          f"{', '.join(f'{t:.2f}' for t in times)} s; launches {ran} "
+          f"({secs:.2f}s in all)", flush=True)
+    print(f"{what}: peak memory {peak:.2f} GiB (limit {LLAMA_PEAK_GIB:.0f}; "
+          f"{init_peak:.2f} GiB by the end of the init; last raised in the "
+          f"{peak_log.get('hop', 'init')} hop), state GiB {state_gib}, on "
+          f"{card_line()}", flush=True)
+    print_profile(prof, times[-1], f"{what}, last event")
+    del engine, state, ms
+    torch.cuda.empty_cache()
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -1726,7 +2142,8 @@ def main():
                   population_phase, eviction_phase, llama_population_phase,
                   algorithms_phase,
                   lambda d: llama_algorithm_phase(d, "7b"),
-                  lambda d: llama_algorithm_phase(d, "7c")):
+                  lambda d: llama_algorithm_phase(d, "7c"),
+                  selection_phase, async_phase, llama_async_phase):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -17,7 +17,10 @@ any dict / tuple pytree of arrays) across unchanged in structure.
 ``algorithm_state_from_jax`` / ``algorithm_state_to_jax`` carry the
 client and server algorithms' state fields of an ``FLState``
 (``server_opt_state``'s ``m`` and ``v``, SCAFFOLD's ``control`` and
-``client_controls``, CMFL's ``prev_delta``).  No function here imports
+``client_controls``, CMFL's ``prev_delta``).  ``async_state_from_jax`` /
+``async_state_to_jax`` carry the async engine's ``FLState.async_state``
+(the scheduler's vectors on the CPU, the buffered rows, losses, pending
+pipeline rows and slot table on the device).  No function here imports
 JAX.
 """
 from __future__ import annotations
@@ -159,4 +162,40 @@ def algorithm_state_to_jax(state) -> dict:
         elif v is not None:
             v = params_to_jax(v)
         out[f] = v
+    return out
+
+
+# the async scheduler's vectors, which the port keeps on the CPU
+ASYNC_HOST_KEYS = ("clock", "next_done", "version", "server_version",
+                   "buf_w", "buf_tau", "next_deadline")
+
+
+def async_state_from_jax(state, device="cpu") -> dict:
+    """The reference's ``FLState.async_state`` (its arrays as numpy) as
+    the port's: ``updates`` a flat ``{dotted path: Tensor}`` dict as
+    :func:`params_from_jax` makes it, ``pending_comm`` as
+    :func:`store_from_jax` makes it, the scheduler's vectors
+    (:data:`ASYNC_HOST_KEYS`) on the CPU and the rest on ``device``."""
+    out = {}
+    for k, v in state.items():
+        if k == "updates":
+            out[k] = params_from_jax(v, device)
+        elif k == "pending_comm":
+            out[k] = store_from_jax(v, device)
+        else:
+            out[k] = _to_tensor(v).to("cpu" if k in ASYNC_HOST_KEYS
+                                      else device)
+    return out
+
+
+def async_state_to_jax(state) -> dict:
+    """The inverse of :func:`async_state_from_jax`, with numpy arrays."""
+    out = {}
+    for k, v in state.items():
+        if k == "updates":
+            out[k] = params_to_jax(v)
+        elif k == "pending_comm":
+            out[k] = store_to_jax(v)
+        else:
+            out[k] = _to_numpy(v)
     return out

@@ -1,7 +1,8 @@
-"""The round engine, sim slice (port of ``repro.core.engine``).
+"""The round engine (port of ``repro.core.engine``): the sim and async
+topologies.
 
 One FL round is a :class:`RoundProgram`, an ordered sequence of hops over a
-plain dict context, as in the reference:
+plain dict context, as in the reference (the ``sim`` topology):
 
     rng -> [cohort] -> downlink -> [dane_gradient] -> local_update
         -> select -> [cmfl] -> wire -> [control] -> server_opt -> ledger
@@ -22,15 +23,19 @@ index, and the chain folds in its stage index; the downlink roundtrips
 every leaf with the same downlink key — so a test that injects
 ``jax.random``-backed keys gets the reference's QSGD uniforms.
 
-Only the ``sim`` topology is ported: the fedavg, fedsgd, fedprox,
-scaffold and feddane client algorithms, CMFL (``cmfl_threshold``), EF or
-DGC uplinks, a downlink compressor roundtripped per leaf (e.g. ``lfl8``),
-full participation and the fedavg / fedavgm / fedadam / fedyogi server
-step, densely or over a streaming
-:class:`~repro_torch.core.population.ClientPopulation` (``population=``:
-a ``cohort`` hop after ``rng``, the dispatch width set to the cohort, and
-the per-client pipeline state in a ``ResidualStore``); every other knob
-raises ``NotImplementedError`` naming the reference module that has it.
+The ``sim`` and ``async`` topologies are ported.  ``sim`` runs the
+fedavg, fedsgd, fedprox, scaffold and feddane client algorithms, CMFL
+(``cmfl_threshold``), EF or DGC uplinks, a downlink compressor
+roundtripped per leaf (e.g. ``lfl8``), the ``all``, ``random``,
+``power_of_choice`` and ``multi_criteria`` selection policies and the
+fedavg / fedavgm / fedadam / fedyogi server step, densely or over a
+streaming :class:`~repro_torch.core.population.ClientPopulation`
+(``population=``: a ``cohort`` hop after ``rng``, the dispatch width set
+to the cohort, and the per-client pipeline state in a ``ResidualStore``).
+``async`` (:mod:`repro_torch.core.async_engine`) is the virtual-clock
+FedBuff / FedAsync event engine on the same dispatch body.  Every other
+knob raises ``NotImplementedError`` naming the reference module that has
+it.
 The client and server algorithms' state runs leaf by leaf: no hop builds
 a concatenation of the model or of C clients' rows.
 """
@@ -59,13 +64,40 @@ _SCENARIO_FIELDS = ("scenario_trace", "scenario_period",
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Which shape the round's transport hops take; the port has ``sim``."""
+    """Which shape the round's transport hops take; the port has ``sim``
+    and ``async``."""
     kind: str
     n_clients: int = 0
+    # async only; the sentinels (0 / None / "") fall back to the FLConfig
+    # fields at engine build time
+    buffer_size: int = 0
+    staleness_alpha: float = None
+    latency_profile: str = ""
+    flush_deadline: float = None
 
     @staticmethod
     def sim(n_clients: int) -> "Topology":
         return Topology(kind="sim", n_clients=n_clients)
+
+    @staticmethod
+    def async_(n_clients: int, buffer_size: int = 0,
+               staleness_alpha: float = None,
+               latency_profile: str = "",
+               flush_deadline: float = None) -> "Topology":
+        """Virtual-clock asynchronous FL (:mod:`repro_torch.core
+        .async_engine`): FedBuff buffering (``buffer_size`` K; 1 =
+        FedAsync, 0 or C = the degenerate synchronous limit), FedAsync
+        staleness decay ``(1 + tau)^(-staleness_alpha)``, per-dispatch
+        latencies drawn from ``latency_profile`` over the FedMCCS device
+        profiles, and ``flush_deadline`` (> 0: also flush when the virtual
+        clock passes the last flush + deadline).  Knobs left at their
+        sentinel (0 / None / "") fall back to ``FLConfig.async_buffer_size
+        / staleness_alpha / latency_profile / async_flush_deadline``."""
+        return Topology(kind="async", n_clients=n_clients,
+                        buffer_size=buffer_size,
+                        staleness_alpha=staleness_alpha,
+                        latency_profile=latency_profile,
+                        flush_deadline=flush_deadline)
 
 
 @dataclasses.dataclass(eq=False)
@@ -281,15 +313,25 @@ def _stack_states(states):
 @dataclasses.dataclass(eq=False)
 class Dispatch:
     """One dispatch generation: ``downlink(params, k_down) -> params`` (the
-    LFL-quantized broadcast), ``local_update(params, model_batch) ->
-    (deltas, losses, first_losses)``, its general form
+    LFL-quantized broadcast), ``local_update(params, model_batch,
+    clients=None) -> (deltas, losses, first_losses)``, its general form
     ``client_updates(params, model_batch, control, client_controls,
-    global_grad) -> (deltas, losses, first_losses, new client controls or
-    None)`` (SCAFFOLD's and FedDANE's solves), ``global_gradient(params,
-    model_batch)`` (FedDANE's gradient round), ``wire_rows(deltas,
-    comm_state, k_up) -> (decoded rows, new comm_state)`` and
-    ``aggregate_rows(rows, w_num, wsum)``.  Deltas, rows and client
-    controls are ``{leaf name: (C, *leaf shape)}`` in leaf order."""
+    global_grad, clients=None) -> (deltas, losses, first_losses, new
+    client controls or None)`` (SCAFFOLD's and FedDANE's solves),
+    ``global_gradient(params, model_batch)`` (FedDANE's gradient round),
+    ``wire_rows(deltas, comm_state, k_up, clients=None) -> (decoded rows,
+    new comm_state rows)`` and ``aggregate_rows(rows, w_num, wsum)``.
+    Deltas, rows and client controls are ``{leaf name: (C, *leaf
+    shape)}`` in leaf order.
+
+    ``clients``, a list of client indices, runs those clients only: the
+    outputs are led by ``len(clients)`` rows in that order, while
+    ``model_batch``, ``client_controls`` and ``comm_state`` stay C-led
+    and are read at the listed indices.  Every client's rows depend only
+    on its own batch, state and keys (the uplink key splits C ways
+    either way), so a subset's rows are bit-identical to the same rows of
+    a full dispatch.  Calling the object is one whole dispatch
+    generation, the async engine's: downlink, local update, wire."""
     downlink: Callable
     local_update: Callable
     client_updates: Callable
@@ -302,6 +344,17 @@ class Dispatch:
         """Model inputs only (FL metadata keys stay out of the loss)."""
         return {k: v for k, v in batch.items()
                 if k not in ("sizes", "resources", "ids")}
+
+    def __call__(self, params, batch, comm_state, k_down, k_up,
+                 clients=None):
+        """``(decoded rows, losses, new comm_state rows)`` of the listed
+        clients (all when None) trained from ``params``' broadcast."""
+        params = self.downlink(params, k_down)
+        deltas, losses, _ = self.local_update(
+            params, self.model_batch(batch), clients=clients)
+        rows, new_comm = self.wire_rows(deltas, comm_state, k_up,
+                                        clients=clients)
+        return rows, losses, new_comm
 
 
 def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
@@ -317,33 +370,36 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
                 .reshape(p.shape).to(p.dtype) for n, p in params.items()}
 
     def client_updates(params, model_batch, control=None,
-                       client_controls=None, global_grad=None):
+                       client_controls=None, global_grad=None,
+                       clients=None):
+        cs = range(C) if clients is None else clients
         ddt = torch.bfloat16 if fl.delta_dtype == "bf16" else torch.float32
-        deltas = {n: torch.empty((C,) + tuple(p.shape), dtype=ddt,
+        deltas = {n: torch.empty((len(cs),) + tuple(p.shape), dtype=ddt,
                                  device=p.device) for n, p in params.items()}
         new_ci = None
         if client_controls is not None:
-            new_ci = {n: torch.empty_like(v)
+            new_ci = {n: torch.empty((len(cs),) + tuple(v.shape[1:]),
+                                     dtype=v.dtype, device=v.device)
                       for n, v in client_controls.items()}
         losses, first = [], []
-        for c in range(C):
+        for j, c in enumerate(cs):
             b = {k: v[c] for k, v in model_batch.items()}
             c_i = (None if client_controls is None else
                    {n: v[c] for n, v in client_controls.items()})
             d, loss, first_loss, nci = _client_update(
                 model, fl, params, b, chunk, control, c_i, global_grad)
             for n, v in d.items():
-                deltas[n][c] = v
+                deltas[n][j] = v
             if new_ci is not None:
                 for n, v in nci.items():
-                    new_ci[n][c] = v
+                    new_ci[n][j] = v
             del d, nci
             losses.append(loss)
             first.append(first_loss)
         return deltas, torch.stack(losses), torch.stack(first), new_ci
 
-    def local_update(params, model_batch):
-        return client_updates(params, model_batch)[:3]
+    def local_update(params, model_batch, clients=None):
+        return client_updates(params, model_batch, clients=clients)[:3]
 
     def global_gradient(params, model_batch):
         # each client's gradient at the broadcast params, accumulated in
@@ -361,20 +417,21 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
             del g
         return {n: v / C for n, v in acc.items()}
 
-    def wire_rows(deltas, comm_state, k_up):
+    def wire_rows(deltas, comm_state, k_up, clients=None):
+        cs = range(C) if clients is None else clients
         rngs_up = k_up.split(C)
         dec_rows, st_rows = {}, []
         for li, (name, leaf) in enumerate(deltas.items()):
-            flat = leaf.reshape(C, -1).to(torch.float32)
+            flat = leaf.reshape(len(cs), -1).to(torch.float32)
             n = flat.shape[1]
             dec = torch.empty_like(flat)
             new_states = []
-            for c in range(C):
+            for j, c in enumerate(cs):
                 r = rngs_up[c].fold_in(li)
                 st = (_index_state(comm_state[li], c) if stateful
                       else up.init((n,), device=flat.device))
-                payload, nst = up.encode(st, r, flat[c])
-                dec[c] = up.decode(payload, n)
+                payload, nst = up.encode(st, r, flat[j])
+                dec[j] = up.decode(payload, n)
                 new_states.append(nst)
             if stateful:
                 st_rows.append(_stack_states(new_states))
@@ -415,10 +472,10 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                           device=None) -> RoundProgram:
 
     def hop_rng(ctx):
-        # the reference's split: (local, downlink, selection, uplink, next);
-        # this slice draws from the downlink and uplink keys
-        _, r_down, _, r_up, r_next = ctx["state"].rng.split(5)
-        ctx.update(r_down=r_down, r_up=r_up, r_next=r_next)
+        # the reference's split: (local, downlink, selection, uplink,
+        # next); the port's local update draws nothing
+        _, r_down, r_sel, r_up, r_next = ctx["state"].rng.split(5)
+        ctx.update(r_down=r_down, r_sel=r_sel, r_up=r_up, r_next=r_next)
         return ctx
 
     def hop_downlink(ctx):
@@ -451,21 +508,28 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         ctx["ids"] = population.cohort_ids(ctx["state"].round, device)
         return ctx
 
-    def hop_select(ctx):
-        sizes = ctx["batch"].get("sizes")
+    def _select(ctx, availability=None):
+        batch, dev = ctx["batch"], ctx["losses"].device
+        sizes = batch.get("sizes")
         if sizes is None:
-            sizes = torch.ones((C,), dtype=torch.float32,
-                               device=ctx["losses"].device)
-        ctx["weights"] = sel.select(fl, sizes)
+            sizes = torch.ones((C,), dtype=torch.float32, device=dev)
+        resources = batch.get("resources")
+        if resources is None:
+            resources = torch.ones((C, 4), dtype=torch.float32, device=dev)
+        ctx["weights"] = sel.select(fl, ctx["r_sel"],
+                                    losses=ctx["first_losses"],
+                                    resources=resources, sizes=sizes,
+                                    availability=availability)
         return ctx
+
+    def hop_select(ctx):
+        return _select(ctx)
 
     def hop_select_available(ctx):
         # the population's per-(id, round) availability draw zero-weights
         # the sampled clients that are offline this round
-        avail = population.availability_mask(ctx["state"].round, ctx["ids"])
-        ctx["weights"] = sel.select(fl, ctx["batch"]["sizes"],
-                                    availability=avail)
-        return ctx
+        return _select(ctx, population.availability_mask(ctx["state"].round,
+                                                         ctx["ids"]))
 
     def hop_cmfl(ctx):
         # CMFL: a client whose raw update agrees in sign with the previous
@@ -614,10 +678,6 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
         C = population.cohort           # dispatch width = the cohort slice
         store = population.make_store(up, model.defs, device)
         aux = dict(population=population, cohort=C, store=store)
-    if fl.selection != "all" and min(fl.clients_per_round or C, C) < C:
-        raise not_ported(f"selection={fl.selection!r} with "
-                         f"clients_per_round={fl.clients_per_round}",
-                         "repro.core.selection")
     dispatch = make_dispatch(model, fl, up, down, C, chunk)
     program = _build_server_program(fl, terms, dispatch, C,
                                     population=population, store=store,
@@ -671,26 +731,36 @@ def _check_population(fl: FLConfig, topology: Topology) -> None:
 
 
 def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
-                      chunk: int = 512, device=None,
+                      chunk: int = 512, device=None, data_fn=None,
                       population=None) -> RoundEngine:
     """Build the round executor for one (model, fl, topology) binding on
     ``device`` (``cuda`` unless ``device="cpu"`` is asked for).
 
+    The ``async`` topology also needs ``data_fn(version) -> batch`` at
+    build time: its events sample each dispatch generation's batch,
+    keyed on the server version at dispatch (:mod:`repro_torch.core
+    .async_engine`).
+
     ``population`` (a :class:`repro_torch.core.population
-    .ClientPopulation`) switches the sim round to streaming cohorts: each
-    round touches ``population.cohort`` sampled clients, and per-client
-    pipeline state lives in a bounded residual store.  Dense builds above
-    ``POPULATION_DENSE_LIMIT`` clients with a stateful uplink are
-    rejected."""
+    .ClientPopulation`) switches the sim and async rounds to streaming
+    cohorts: each round or generation touches ``population.cohort``
+    sampled clients, and per-client pipeline state lives in a bounded
+    residual store.  Dense builds above ``POPULATION_DENSE_LIMIT`` clients
+    with a stateful uplink are rejected."""
     dev = resolve_device(device)
-    if topology.kind != "sim":
+    if topology.kind not in ("sim", "async"):
         raise not_ported(f"topology {topology.kind!r}", "repro.core.engine")
     if topology.n_clients <= 0:
-        raise ValueError("sim topology needs n_clients > 0")
+        raise ValueError(f"{topology.kind} topology needs n_clients > 0")
     if population is None:
         _check_population(fl, topology)
-    engine = _build_sim(model, fl, topology, chunk, dev,
-                        population=population)
+    if topology.kind == "async":
+        from repro_torch.core.async_engine import build_async_engine
+        engine = build_async_engine(model, fl, topology, data_fn, chunk,
+                                    dev, population=population)
+    else:
+        engine = _build_sim(model, fl, topology, chunk, dev,
+                            population=population)
     engine.eval_every = max(1, int(fl.eval_every))
     return engine
 
@@ -718,7 +788,9 @@ def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
                eval_every=None):
     """Run ``n`` rounds; ``data_fn(round_idx) -> batch``.  Returns
     ``(final_state, metrics)`` with every metric stacked over a leading
-    (n,) round dim (the ledger as a CommLedger of (n,) tensors).
+    (n,) round dim (the ledger as a CommLedger of (n,) tensors).  On the
+    ``async`` topology a round is one server event, which samples its own
+    dispatch batches: no batch is drawn for it here.
 
     ``metrics_fn(new_state, metrics) -> metrics`` (optional) appends
     per-round metrics such as a held-out eval loss.  It runs every
@@ -733,7 +805,9 @@ def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
     rows, tmpl = [], None
     for _ in range(n):
         due = state.round % ee == ee - 1
-        state, m = engine.round_fn(state, data_fn(state.round))
+        batch = None if engine.topology.kind == "async" else \
+            data_fn(state.round)
+        state, m = engine.round_fn(state, batch)
         if metrics_fn is not None and due:
             m = metrics_fn(state, m)
             tmpl = m

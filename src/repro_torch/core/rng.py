@@ -75,6 +75,16 @@ class Key:
                               dtype=torch.int64, device=device)
 
 
+def uniform_between(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """f32 uniforms ``u`` in [0, 1) moved to [lo, hi) with
+    ``jax.random.uniform``'s arithmetic, one rounding per op:
+    ``max(lo, u * (hi - lo) + lo)``, the bounds and their difference
+    rounded to f32 first."""
+    f32 = dict(dtype=torch.float32, device=u.device)
+    lo_t, hi_t = torch.tensor(lo, **f32), torch.tensor(hi, **f32)
+    return torch.maximum(lo_t, u * (hi_t - lo_t) + lo_t)
+
+
 def PRNGKey(seed: int) -> Key:
     """The root key of a run (the reference's ``jax.random.PRNGKey``)."""
     return Key(seed)

@@ -8,6 +8,12 @@ with a shared global bigram structure G, per-cluster perturbations P_z and
 a per-client unigram skew gamma_c — the reference's construction, drawn
 from ``torch.Generator``s instead of ``jax.random`` (the bits differ; the
 differential tests feed the reference's batches).
+
+Each client also has a FedMCCS device profile, ``resources`` (C, 4) f32
+in [0.05, 1) ([cpu, memory, energy, link]): the signal of the
+``multi_criteria`` selection policy and of the async engine's latency
+draws (``data.pipeline.device_latency``).  It comes from a generator
+stream of its own, so the tokens and sizes do not depend on it.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.rng import Key
+from repro_torch.core.rng import Key, uniform_between
 from repro_torch.device import resolve_device
 
 
@@ -53,6 +59,15 @@ def client_tables(cfg: FedDataConfig, device):
     return logits, sizes
 
 
+def client_resources(cfg: FedDataConfig, device):
+    """The clients' FedMCCS device profiles (C, 4) f32 in [0.05, 1), a
+    function of ``cfg.seed`` only (the reference's ``minval=0.05``
+    uniforms, from a stream of their own)."""
+    u = torch.rand((cfg.num_clients, 4), generator=_gen(cfg.seed, 5, device),
+                   dtype=torch.float32, device=device)
+    return uniform_between(u, 0.05, 1.0)
+
+
 def client_clusters(cfg: FedDataConfig, device=None):
     """Each client's ground-truth generator cluster (C,) int64, the ``z``
     of :func:`client_tables` (for FL+HC recovery experiments)."""
@@ -62,10 +77,9 @@ def client_clusters(cfg: FedDataConfig, device=None):
 
 
 def sample_round(cfg: FedDataConfig, seed: int, device=None):
-    """One round's client-major batch: tokens/labels/mask (C, B, S) and
-    sizes (C,) (the reference's FedMCCS ``resources`` are not drawn: no
-    ported selection policy reads them).  ``seed`` picks the round's
-    draws."""
+    """One round's client-major batch: tokens/labels/mask (C, B, S), sizes
+    (C,) and resources (C, 4).  ``seed`` picks the round's draws; sizes
+    and resources are the same every round."""
     dev = resolve_device(device)
     return _sample(cfg, _gen(cfg.seed, 1_000 + int(seed), dev), dev)
 
@@ -98,7 +112,8 @@ def _sample(cfg: FedDataConfig, g: torch.Generator, dev):
         tok = torch.multinomial(rows, 1, generator=g).reshape(C, B)
         toks.append(tok)
     tokens = torch.stack(toks, dim=-1)                    # (C, B, S)
-    return dict(_labels_and_mask(tokens), sizes=sizes)
+    return dict(_labels_and_mask(tokens), sizes=sizes,
+                resources=client_resources(cfg, dev))
 
 
 def _labels_and_mask(tokens):
@@ -117,8 +132,9 @@ def sample_cohort(cfg: FedDataConfig, seed: int, ids, device=None):
     The per-client draws are made on the CPU (the same values on every
     device, and no device sync per client).  The values differ from
     :func:`client_tables`' (the scale path, not a replica of the dense
-    one).  Returns the :func:`sample_round` dict with an (M,) lead plus
-    ``"ids"`` (int32)."""
+    one).  Each client's resources come from a generator keyed on its id
+    in a stream of their own.  Returns the :func:`sample_round` dict with
+    an (M,) lead plus ``"ids"`` (int32)."""
     dev = resolve_device(device)
     V = min(cfg.vocab_size, 256)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -127,12 +143,13 @@ def sample_cohort(cfg: FedDataConfig, seed: int, ids, device=None):
                     generator=_gen(cfg.seed, 1, dev), **f32) * 2.0
     ids = ids.to(device=dev, dtype=torch.int32)
     M, B, S = ids.shape[0], cfg.batch_per_client, cfg.seq_len
-    z, gamma, sizes, u = [], [], [], []
+    z, gamma, sizes, res, u = [], [], [], [], []
     for i in ids.tolist():
         g = Key(cfg.seed + 2).fold_in(i).generator("cpu")
         z.append(int(torch.randint(0, cfg.num_clusters, (), generator=g)))
         gamma.append(torch.randn((V,), generator=g))
         sizes.append(1.0 + torch.rand((), generator=g))
+        res.append(Key(cfg.seed + 3).fold_in(i).uniform((4,), "cpu"))
         u.append(Key(cfg.seed + 1).fold_in(int(seed)).fold_in(i)
                  .uniform((B, S + 1), "cpu"))
     gamma = torch.stack(gamma).to(dev) * 1.5 * cfg.client_skew      # (M, V)
@@ -151,4 +168,5 @@ def sample_cohort(cfg: FedDataConfig, seed: int, ids, device=None):
             .squeeze(-1).clamp(max=V - 1)
         tokens[:, :, t] = tok
     return dict(_labels_and_mask(tokens), sizes=torch.stack(sizes).to(dev),
+                resources=uniform_between(torch.stack(res), 0.05, 1.0).to(dev),
                 ids=ids)

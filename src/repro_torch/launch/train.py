@@ -25,11 +25,27 @@ prints it as ``eval=`` on that round's line:
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \
         --algorithm scaffold --server-opt fedadam --eval-every 2
 
+``--selection`` takes all, random, power_of_choice or multi_criteria, with
+``--clients-per-round`` m of the ``--clients``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \
+        --clients 16 --selection power_of_choice --clients-per-round 4
+
+``--async`` runs the virtual-clock engine: ``--clients`` slots, FedBuff
+with ``--buffer-size`` K (1 = FedAsync, 0 = every slot), staleness decay
+``--staleness-alpha``, latencies from ``--latency-profile`` and, with
+``--flush-deadline`` > 0, a flush whenever the clock passes the last
+flush plus the deadline; ``--rounds`` then counts server events (client
+uploads).  With ``--population`` the slots are the cohort:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \
+        --async --clients 8 --buffer-size 4 --latency-profile heavy_tail \
+        --compressor "topk:0.05>>qsgd:8" --backend kernel --rounds 32
+
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
-``--device cpu`` is given.  The reference CLI's mesh, async, scenario
-(other than ``--scenario-availability`` under ``--population``), tracing
-and selection options are not ported yet; ``--async`` and the other
-``--scenario-*`` flags raise.
+``--device cpu`` is given.  The reference CLI's mesh, scenario (other
+than ``--scenario-availability`` under ``--population``) and tracing
+options are not ported yet; the other ``--scenario-*`` flags raise.
 """
 from __future__ import annotations
 
@@ -63,10 +79,32 @@ def _parse(argv=None):
                          "(FLConfig.eval_every); 0 = every 8 rounds")
     ap.add_argument("--server-opt", default="fedavg",
                     help="fedavg, fedavgm, fedadam or fedyogi")
+    ap.add_argument("--selection", default="all",
+                    help="all, random, power_of_choice or multi_criteria")
+    ap.add_argument("--clients-per-round", type=int, default=0,
+                    help="clients the selection policy takes per round "
+                         "(0 = all)")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="AsyncEngine: virtual-clock buffered async FL; "
+                         "--rounds then counts server events (client "
+                         "uploads), not synchronous rounds")
+    ap.add_argument("--buffer-size", type=int, default=0,
+                    help="async FedBuff K (1 = FedAsync, 0 = n_clients "
+                         "= the synchronous limit)")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="async staleness decay (1+tau)^(-alpha); also "
+                         "scales the adaptive server-opt moments by the "
+                         "flushed buffer's mean staleness")
+    ap.add_argument("--latency-profile", default="heavy_tail",
+                    choices=["constant", "resource", "uniform", "heavy_tail"])
+    ap.add_argument("--flush-deadline", type=float, default=0.0,
+                    help="async adaptive buffer sizing: also flush when the "
+                         "virtual clock passes the last flush + deadline "
+                         "(0 = count-only FedBuff)")
     ap.add_argument("--population", type=int, default=0,
                     help="simulate this many clients on the streaming "
-                         "ClientPopulation path: per-round cohorts and a "
-                         "bounded residual store")
+                         "ClientPopulation path (works with --async too): "
+                         "per-round cohorts and a bounded residual store")
     ap.add_argument("--cohort", type=int, default=1024,
                     help="clients sampled per round (population mode)")
     ap.add_argument("--store-capacity", type=int, default=0,
@@ -80,7 +118,6 @@ def _parse(argv=None):
                     help="per-round availability rate in (0, 1] of the "
                          "sampled clients (population mode only)")
     # reference options that the port does not run: set, they raise
-    ap.add_argument("--async", dest="async_mode", action="store_true")
     for flag, default in _NOT_PORTED_SCENARIO:
         ap.add_argument(flag, type=type(default), default=default)
     ap.add_argument("--seq", type=int, default=48)
@@ -104,8 +141,6 @@ def main(argv=None):
     from repro_torch.device import not_ported, resolve_device
     from repro_torch.models.model import Model
 
-    if args.async_mode:
-        raise not_ported("--async", "repro.core.async_engine")
     for flag, default in _NOT_PORTED_SCENARIO:
         if getattr(args, flag[2:].replace("-", "_")) != default:
             raise not_ported(flag, "repro.core.scenario")
@@ -118,11 +153,17 @@ def main(argv=None):
     fl = FLConfig(algorithm=args.algorithm, local_steps=args.local_steps,
                   local_lr=args.local_lr, uplink_compressor=args.compressor,
                   downlink_compressor=args.downlink, backend=args.backend,
-                  server_opt=args.server_opt,
+                  server_opt=args.server_opt, selection=args.selection,
+                  clients_per_round=args.clients_per_round,
                   eval_every=args.eval_every if args.eval_every > 0 else 8,
-                  seed=args.seed)
+                  async_buffer_size=args.buffer_size,
+                  staleness_alpha=args.staleness_alpha,
+                  latency_profile=args.latency_profile,
+                  async_flush_deadline=args.flush_deadline, seed=args.seed)
     if args.population > 0:
         return _population(args, cfg, model, fl, device)
+    if args.async_mode:
+        return _async(args, cfg, model, fl, device)
     sim = make_sim_step(model, fl, args.clients, chunk=args.seq,
                         device=device)
     data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=args.clients,
@@ -133,8 +174,8 @@ def main(argv=None):
           f"params={model.param_count():,} device={device} "
           f"uplink={args.compressor} downlink={args.downlink} "
           f"backend={args.backend} algorithm={args.algorithm} "
-          f"server_opt={args.server_opt} eval_every={fl.eval_every}",
-          flush=True)
+          f"server_opt={args.server_opt} eval_every={fl.eval_every} "
+          f"selection={args.selection}", flush=True)
     ev = eval_batch(data, 99, batch_size=4, device=device)
 
     def metrics_fn(st, m):
@@ -155,6 +196,7 @@ def main(argv=None):
     for i in range(args.rounds):
         ev_loss = float(ms["eval_loss"][i])
         print(f"round {i:>3} loss={float(ms['loss'][i]):.3f} "
+              f"selected={int(ms['selected'][i])} "
               f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB "
               f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x"
               + (f" eval={ev_loss:.3f}" if ev_loss == ev_loss else ""),
@@ -163,9 +205,56 @@ def main(argv=None):
     return state, ms
 
 
+def _print_events(ms, n):
+    for i in range(n):
+        print(f"event {i:>4} t={float(ms['clock'][i]):8.2f} "
+              f"v={int(ms['server_version'][i]):>3} "
+              f"tau={float(ms['staleness'][i]):>3.0f} "
+              f"loss={float(ms['loss'][i]):.3f} "
+              f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB",
+              flush=True)
+
+
+def _async(args, cfg, model, fl, device):
+    """The virtual-clock path: --rounds counts server events."""
+    import torch
+
+    from repro_torch.core.async_engine import make_async_step
+    from repro_torch.core.engine import run_rounds
+    from repro_torch.data.synthetic import FedDataConfig, sample_round
+
+    data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=args.clients,
+                         seq_len=args.seq,
+                         batch_per_client=args.batch_per_client,
+                         heterogeneity=1.5, seed=args.seed)
+
+    def data_fn(v):
+        return sample_round(data, v, device)
+
+    a = make_async_step(model, fl, args.clients, data_fn, chunk=args.seq,
+                        device=device)
+    print(f"async arch={cfg.name} clients={args.clients} "
+          f"K={a.buffer_size} alpha={args.staleness_alpha} "
+          f"profile={args.latency_profile} "
+          f"deadline={args.flush_deadline or 'off'} "
+          f"params={model.param_count():,} device={device} "
+          f"uplink={args.compressor} backend={args.backend}", flush=True)
+    state = a.init_fn(args.seed)
+    t0 = time.perf_counter()
+    state, ms = run_rounds(a.engine, state, data_fn, args.rounds)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    _print_events(ms, args.rounds)
+    print(f"{args.rounds} events, {int(ms['server_version'][-1])} flushes "
+          f"in {secs:.2f}s on {device}")
+    return state, ms
+
+
 def _population(args, cfg, model, fl, device):
     """The streaming-cohort path: --population clients exist, --cohort
-    train per round, per-client pipeline state bounded by the store."""
+    train per round (per generation under --async), per-client pipeline
+    state bounded by the store."""
     import torch
 
     from repro_torch.compress.residual_store import store_nbytes
@@ -184,20 +273,27 @@ def _population(args, cfg, model, fl, device):
                          batch_per_client=args.batch_per_client,
                          heterogeneity=1.5, seed=args.seed)
     data_fn = cohort_data_fn(pop, data, device)
-    engine = make_round_engine(model, fl, Topology.sim(N), chunk=args.seq,
-                               device=device, population=pop)
+    topo = Topology.async_(N) if args.async_mode else Topology.sim(N)
+    engine = make_round_engine(model, fl, topo, chunk=args.seq,
+                               device=device, data_fn=data_fn,
+                               population=pop)
     state = engine.init_fn(args.seed)
     mb = (store_nbytes(state.comm_state) / 1e6
           if state.comm_state is not None else 0.0)
     print(f"population={N:,} cohort={pop.cohort} capacity={pop.capacity} "
           f"eviction={pop.eviction} store={mb:.1f}MB "
-          f"params={model.param_count():,} sync device={device} "
+          f"params={model.param_count():,} "
+          f"{'async' if args.async_mode else 'sync'} device={device} "
           f"uplink={args.compressor} backend={args.backend}", flush=True)
     t0 = time.perf_counter()
     state, ms = run_rounds(engine, state, data_fn, args.rounds)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0
+    if args.async_mode:
+        _print_events(ms, args.rounds)
+        print(f"{args.rounds} events in {secs:.2f}s on {device}")
+        return state, ms
     for i in range(args.rounds):
         print(f"round {i:>4} loss={float(ms['loss'][i]):.3f} "
               f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB",

@@ -27,7 +27,7 @@ from repro.compress import make_compressor as make_jax
 from repro_torch.compress import make_compressor
 from repro_torch.compress import sketch as sk_t
 from repro_torch.compress.pipeline import error_feedback
-from test_torch_jaxkeys import JaxKey, ieee_jit, jax_hash_params
+from test_torch_jaxkeys import JaxKey, jax_hash_params
 
 CASES = ([c for c in STAGE_CASES if c["name"] in
           ("topk", "qsgd8", "qsgd4", "qsgd_block256", "sketch")]
@@ -80,21 +80,24 @@ def _input(kind, n, r):
 @functools.lru_cache(maxsize=None)
 def _reference_run(name):
     """The reference's rounds for one case, computed once for both port
-    backends: [(n, round, x, payload, decode, state)] as numpy, compiled
-    with :func:`ieee_jit` so every op rounds on its own."""
+    backends: [(n, round, x, payload, decode, state)] as numpy, run op by
+    op (``jax.disable_jit``): XLA compiles each primitive on its own, so
+    no two ops contract into an FMA, as under :func:`ieee_jit` (none of
+    these stages uses a primitive that XLA expands into a polynomial,
+    such as ``erf_inv``), and each primitive compiles once for every
+    case."""
     c = next(c for c in CASES if c["name"] == name)
     ref = build(c, "jax")
-    enc = ieee_jit(ref.encode)
-    dec = ieee_jit(ref.decode, static_argnums=1)
     out = []
+    to_np = lambda t: jax.tree.map(np.asarray, t)
     for n in c["sizes"]:
         st = ref.init((n,))
         for r in range(c["rounds"]):
             x = _input(c["input"], n, r)
-            pay, st = enc(st, _key(r), jnp.asarray(x))
-            to_np = lambda t: jax.tree.map(np.asarray, t)
-            out.append((n, r, x, to_np(pay), np.asarray(dec(pay, n)),
-                        to_np(st)))
+            with jax.disable_jit():
+                pay, st = ref.encode(st, _key(r), jnp.asarray(x))
+                dec = ref.decode(pay, n)
+            out.append((n, r, x, to_np(pay), np.asarray(dec), to_np(st)))
     return ref, out
 
 

@@ -48,7 +48,7 @@ from repro_torch.core import server_opt as ST
 from repro_torch.core.simulate import make_sim_step
 from repro_torch.core.types import FLConfig
 from repro_torch.models.model import Model
-from test_torch_jaxkeys import JaxKey, ieee_jit, to_torch
+from test_torch_jaxkeys import JaxKey, ieee_jit, quick_jit, to_torch
 
 SPECS = ["topk:0.05>>qsgd:8", "topk:0.05>>qsgd:4@fused"]
 C, SEQ, B = 2, 16, 2
@@ -101,9 +101,12 @@ def test_wire_round_bitexact_against_reference(spec):
     assert terms_t == terms_j
     disp_j = EJ.make_dispatch(mj, flj, up_j, down_j, C, SEQ)
     disp_t = ET.make_dispatch(mt, flt, up_t, down_t, C, SEQ)
-    local = jax.jit(disp_j.local_update)
+    # the deltas feed both wires: their bits are not compared, so the
+    # local update compiles at optimization level 0
+    local = quick_jit(disp_j.local_update)
     wire_j = ieee_jit(disp_j.wire_rows)
     agg_rows_j = ieee_jit(disp_j.aggregate_rows)
+    apply_j = ieee_jit(functools.partial(SJ.apply, flj))
     params_j = mj.init(jax.random.PRNGKey(0))
     params_t = params_from_jax(jax.tree.map(np.asarray, params_j))
     comm_j = EJ.comm_state_init(up_j, params_j, C)
@@ -117,8 +120,7 @@ def test_wire_round_bitexact_against_reference(spec):
         w_j = jnp.asarray(b["sizes"])
         wsum_j = jnp.maximum(w_j.sum(), 1e-9)
         agg_j = agg_rows_j(rows_j, w_j, wsum_j)
-        params_j, _ = ieee_jit(functools.partial(SJ.apply, flj))(
-            params_j, agg_j, {})
+        params_j, _ = apply_j(params_j, agg_j, {})
         n_sel = (w_j > 0).sum().astype(jnp.float32)
         led_j = EJ._make_ledger(terms_j, n_sel)
 

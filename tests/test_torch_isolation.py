@@ -58,8 +58,8 @@ def test_unported_knobs_raise_naming_the_reference_module():
     from repro_torch.core.types import FLConfig
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
-    for kw, module in ((dict(selection="random", clients_per_round=1),
-                        "repro.core.selection"),
+    for kw, module in ((dict(scenario_epoch_scale=0.5),
+                        "repro.core.scenario"),
                        (dict(dp_sigma=1.0), "repro.compress.secure_agg"),
                        (dict(telemetry=True), "repro.obs.telemetry"),
                        (dict(secure_agg=True), "repro.compress.secure_agg"),

@@ -18,6 +18,7 @@ from repro.models.model import Model as ModelJax
 from repro_torch.configs.registry import get_arch, get_smoke
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.models.model import Model
+from test_torch_jaxkeys import quick_jit
 
 ARCHS = [("paper_lm", get_arch_jax, get_arch),
          ("llama3_2_1b", get_smoke_jax, get_smoke)]
@@ -44,7 +45,9 @@ def test_loss_and_grads_match_reference(name, jax_cfg, port_cfg):
     mt = Model(port_cfg(name))
     pj = mj.init(jax.random.PRNGKey(3))
     b = _batch(mt.cfg.vocab_size)
-    loss_j, g_j = jax.jit(jax.value_and_grad(
+    # optimization level 0 compiles in about half the time; the default
+    # jit contracts FMAs as well, and the tolerances cover either
+    loss_j, g_j = quick_jit(jax.value_and_grad(
         lambda p: mj.loss(p, {k: jnp.asarray(v) for k, v in b.items()},
                           chunk=8)[0]))(pj)
     pt = params_from_jax(jax.tree.map(np.asarray, pj))

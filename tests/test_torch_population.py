@@ -52,7 +52,7 @@ from repro_torch.core import scenario as scn_t
 from repro_torch.core.types import FLConfig
 from repro_torch.models.model import Model
 from test_torch_engine import _same_ledger, _tree_np
-from test_torch_jaxkeys import JaxKey, ieee_jit, jax_hash_params
+from test_torch_jaxkeys import JaxKey, ieee_jit, jax_hash_params, quick_jit
 
 SPEC = "topk:0.25>>qsgd:8"
 SEQ, B = 16, 2
@@ -72,13 +72,6 @@ def _constant_hash_params(rows, seed=17):
     compile time of the sketch store)."""
     return tuple(jnp.asarray(v) for v in _reference_hash_constants(rows,
                                                                    seed))
-
-
-def quick_jit(fn):
-    """``jax.jit`` at XLA's optimization level 0, for reference programs
-    whose bits are not compared (or that only move data): the sketch
-    store's program compiles in about half the time."""
-    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -443,12 +436,12 @@ def test_cli_population_on_cpu(capsys):
     assert state.comm_state["client"].tolist()[:2] != [-1, -1]
 
 
-@pytest.mark.parametrize("flags", [["--async"],
+@pytest.mark.parametrize("flags", [["--scenario-dropout", "0.1"],
                                    ["--scenario-trace", "diurnal"],
                                    ["--scenario-availability", "0.5"]])
 def test_cli_rejects_unported_flags(flags):
-    """``--async``, the other ``--scenario-*`` flags, and
-    ``--scenario-availability`` without ``--population`` raise."""
+    """The other ``--scenario-*`` flags, and ``--scenario-availability``
+    without ``--population``, raise."""
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(["--device", "cpu"] + flags)

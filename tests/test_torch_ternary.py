@@ -182,11 +182,11 @@ def _close(a, b, tol, what):
 
 @functools.lru_cache(maxsize=None)
 def _reference_run(name):
-    """The reference's rounds for one case, once for both port backends."""
+    """The reference's rounds for one case, once for both port backends,
+    run op by op (``jax.disable_jit``, as test_torch_compress.py runs its
+    stages)."""
     c = next(c for c in CASES if c["name"] == name)
     ref = build(c, "jax")
-    enc = ieee_jit(ref.encode)
-    dec = ieee_jit(ref.decode, static_argnums=1)
     out = []
     for n in c["sizes"]:
         st = ref.init((n,))
@@ -194,9 +194,11 @@ def _reference_run(name):
             x = (np.random.default_rng(1000 * r + n).standard_normal(n)
                  * 2.0).astype(np.float32)
             key = jax.random.fold_in(jax.random.PRNGKey(7), r)
-            pay, st = enc(st, key, jnp.asarray(x))
+            with jax.disable_jit():
+                pay, st = ref.encode(st, key, jnp.asarray(x))
+                dec = ref.decode(pay, n)
             out.append((n, r, x, key, jax.tree.leaves(pay),
-                        np.asarray(dec(pay, n)), jax.tree.leaves(st)))
+                        np.asarray(dec), jax.tree.leaves(st)))
     return ref, c, out
 
 
