@@ -56,9 +56,11 @@ line is printed):
   5b. the same of EF ``stc:0.1@fused`` with an ``lfl8`` downlink;
   5c. the same of EF ``sketch>>qsgd:8``.  Phases 5-5c need a finite loss
      and the ledger equal to its static terms, and print the peak memory.
-     The kernel runs of phases 4-5c go under ``torch.profiler``, which
-     prints the device's busy share and device time by launching operator
-     (the plain runs do not: nothing reads their profiles);
+     The last round of each kernel run of phases 4-5c goes under
+     ``torch.profiler``, which prints the device's busy share and device
+     time by launching operator (the plain runs do not: nothing reads
+     their profiles; a whole run's trace took longer to summarise than
+     the run);
   6. slice 5's path, the population round: paper_lm over a streaming
      ``ClientPopulation`` of 100,000 and of 1,000,000 clients (stride
      cohorts of 16, a 64-slot residual store, EF ``topk:0.05>>qsgd:8``,
@@ -124,12 +126,43 @@ line is printed):
      batch 1, E=1, 6 events through the kernels: finite losses, a flush
      every event, the peak memory under 76 GiB with the hop that last
      raised it, each event's time and the last event's busy share;
-  10. the ``kernels`` JSON line: launch counts are those of the main-path
-     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b),
-     each counted from 0 just before its phase (the count sketch's by path
-     too, each of which must launch); the pack and unpack kernels are on
-     no path and count their phase-3 calls;
-  11. last line: ``{"ok": true, "device": {...}}``.
+  10. slice 8's privacy wire on paper_lm (8 clients, seq 32, batch 2,
+     E=2, 3 rounds): each of the reference's ``PRIVACY_CASES`` (``qsgd:4``,
+     ``topk:0.05>>qsgd:4``, ``ternary@fused``, EF ``topk:0.05>>qsgd:8``,
+     ``qsgd:2@fused``, each ``>>secagg``) equal to its clear run bit for
+     bit on the kernel backend (params, EF rows with the mask context
+     dropped, ledger but the entropy bill, loss) and to the plain backend
+     (the ternary case, whose mu sums in another order: ledger exact, loss
+     within rtol 1e-5, params within 1e-3 of their scale); one leaf
+     encoded by the 8
+     clients, whose masked code planes sum to the clear sum and, without
+     client 4, to it minus ``dropout_correction``; then
+     ``topk:0.05>>qsgd:4>>dpnoise:0.8>>secagg``, whose ledger bills
+     dp_rho = 8 x 0.5/0.8^2 in f32 a round;
+  10b. llama3_2_1b at full width and depth, 2 clients, seq 128, batch 1,
+     E=1, 2 rounds of EF ``topk:0.05>>qsgd:4@fused`` with ``dp_sigma``
+     0.8, ``dp_clip`` 1.0 and ``scenario_dropout`` 0.5 through the
+     kernels, with ``secure_agg`` on and off: bit-identical, the ledger
+     billing both clients every round (the pre-dropout count), the peak
+     memory under 76 GiB beside the card's name and power limit;
+  11. slice 8's client dynamics on paper_lm, both backends bit-identical
+     in every run: the reference's ``SCENARIO_CASES`` (duty-1 square and
+     diurnal traces, epoch-scale floor 1) equal to their scenario-free
+     runs bit for bit (2 rounds); square and diurnal traces at duty 0.5
+     over 16 clients, ``selected`` the trace's count every round;
+     ``scenario_dropout`` 0.3 under ``qsgd:4>>secagg`` equal to the clear
+     run, billed before the dropout; ``scenario_epoch_scale`` 0.5 at E=4
+     with each client's step budget printed; the population's square trace
+     over 100,000 clients (cohorts of 16, 64 slots); the async engine (8
+     slots, K = 8, ``heavy_tail``, 24 events) with the deadline tracking
+     the 0.5 completion quantile and dropout 0.2, printing its flush
+     times and ``q_est``;
+  12. the ``kernels`` JSON line: launch counts are those of the main-path
+     phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
+     10b, 11), each counted from 0 just before its phase (the count
+     sketch's by path too, each of which must launch); the pack and unpack
+     kernels are on no path and count their phase-3 calls;
+  13. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -263,6 +296,48 @@ ASYNC_POP = dict(n_clients=100_000, cohort=16, capacity=64, sampler="stride")
 ASYNC_POP_K = 4
 LLAMA_ASYNC = dict(slots=2, buffer_size=1, latency_profile="heavy_tail",
                    spec="topk:0.05>>qsgd:4@fused", events=6)
+# slice 8's privacy wire: the reference's PRIVACY_CASES
+# (tests/parity_cases.py:117), each masked spec beside its clear base;
+# (label, masked spec, clear spec, EF, the backends' loss rtol (None:
+# bit-identical; the ternary row's mu is a sum in another order), kernels)
+PRIV_RUNS = (
+    ("secagg_qsgd4", "qsgd:4>>secagg", "qsgd:4", False, None,
+     ("qsgd_quantize",)),
+    ("secagg_topk_qsgd", "topk:0.05>>qsgd:4>>secagg", "topk:0.05>>qsgd:4",
+     False, None, ("threshold_sparsify", "qsgd_quantize")),
+    ("secagg_ternary_fused", "ternary@fused>>secagg", "ternary@fused", False,
+     1e-5, ("ternarize_pack",)),
+    ("secagg_ef_chain", "topk:0.05>>qsgd:8>>secagg", "topk:0.05>>qsgd:8",
+     True, None, ("threshold_sparsify", "qsgd_quantize")),
+    ("secagg_qsgd2_fused", "qsgd:2@fused>>secagg", "qsgd:2@fused", False,
+     None, ("qsgd_pack",)),
+)
+PRIV_PARAM_RTOL = 1e-3          # the ternary row's params across backends
+PRIV_DP = "topk:0.05>>qsgd:4>>dpnoise:0.8>>secagg"
+LLAMA_PRIV = dict(uplink_compressor="topk:0.05>>qsgd:4@fused", dp_sigma=0.8,
+                  dp_clip=1.0, scenario_dropout=0.5)
+# slice 8's client dynamics: the reference's SCENARIO_CASES
+# (tests/parity_cases.py:167), enabled but drawing identity masks; (label,
+# spec, FLConfig knobs, kernels of the kernel backend, of the plain one)
+SCN_CASES = (
+    ("square_duty1_ef", "topk:0.25>>qsgd:8", dict(scenario_trace="square"),
+     ("threshold_sparsify", "qsgd_quantize"), ()),
+    ("diurnal_rate1_kernel", "topk:0.25@kernel>>qsgd:8",
+     dict(scenario_trace="diurnal"), ("threshold_sparsify", "qsgd_quantize"),
+     ("threshold_sparsify",)),
+    ("escale_floor1_fused", "qsgd:4@fused", dict(scenario_epoch_scale=1.0),
+     ("qsgd_pack",), ()),
+    ("square_duty1_secagg", "qsgd:4>>secagg", dict(scenario_trace="square"),
+     ("qsgd_quantize",), ()),
+    ("diurnal_escale_combo", "topk:0.25>>qsgd:8",
+     dict(scenario_trace="diurnal", scenario_epoch_scale=1.0),
+     ("threshold_sparsify", "qsgd_quantize"), ()),
+)
+SCN_ROUNDS, SCN_TRACE_CLIENTS = 2, 16
+SCN_POP = dict(n_clients=100_000, cohort=16, capacity=64, sampler="stride",
+               availability=0.5)
+SCN_ASYNC_TOPO = dict(buffer_size=8, latency_profile="heavy_tail")
+SCN_ASYNC_EVENTS = 24
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -682,7 +757,7 @@ def watch_peak(program, log=None):
 
 # the kernel runs go under the profiler; the plain runs, whose profiles
 # nothing reads, do not (parsing a trace takes longer than the run)
-PROFILED = {"kernel": " under the profiler", "jax": ""}
+PROFILED = {"kernel": ", the last round under the profiler", "jax": ""}
 
 
 def profiled_if(on):
@@ -693,8 +768,23 @@ def profiled_if(on):
         torch.profiler.ProfilerActivity.CUDA])
 
 
+def cat_metrics(a, b):
+    """Two ``run_rounds`` metrics back to back (``a`` may be None)."""
+    from repro_torch.core.types import CommLedger
+    if a is None:
+        return b
+    out = {k: torch.cat([a[k], b[k]]) for k in a if k != "ledger"}
+    la, lb = a["ledger"].fields(), b["ledger"].fields()
+    out["ledger"] = CommLedger(**{f: torch.cat([la[f], lb[f]]) for f in la})
+    return out
+
+
 def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
-            local_steps, local_lr, peak_log=None):
+            local_steps, local_lr, peak_log=None, prof_out=None):
+    """``rounds`` sim rounds; with a ``prof_out`` dict the last round runs
+    under ``torch.profiler`` (a whole run's trace takes longer to
+    summarise than the run) and ``prof_out`` gets the profiler and the
+    round's wall time."""
     from repro_torch.core.engine import run_rounds
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
@@ -706,11 +796,23 @@ def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
     if peak_log is not None:
         watch_peak(sim.engine.round_fn, peak_log)
     data = fed_data(model, clients, seq, batch)
+    data_fn = lambda r: sample_round(data, r, dev)
     state = sim.init_fn(0)
-    state, ms = run_rounds(sim.engine, state,
-                           lambda r: sample_round(data, r, dev), rounds)
+    if prof_out is None:
+        state, ms = run_rounds(sim.engine, state, data_fn, rounds)
+        torch.cuda.synchronize()
+        return sim, state, ms
+    state, head = run_rounds(sim.engine, state, data_fn, rounds - 1)
     torch.cuda.synchronize()
-    return sim, state, ms
+    prof = profiled_if(True)
+    prof.start()
+    t0 = time.perf_counter()
+    state, tail = run_rounds(sim.engine, state, data_fn, 1)
+    torch.cuda.synchronize()
+    prof_out.update(secs=time.perf_counter() - t0)
+    prof.stop()
+    prof_out["prof"] = prof
+    return sim, state, cat_metrics(head, tail)
 
 
 def _tensors(tree):
@@ -765,12 +867,11 @@ def paper_lm_phase(dev):
         for backend in ("kernel", "jax"):
             before = launch_counts()
             t0 = time.perf_counter()
-            with profiled_if(backend == "kernel") as prof:
-                sim, state, ms = run_sim(model, dict(uplink_compressor=spec),
-                                         backend,
-                                         PAPER_LM_CLIENTS, PAPER_LM_SEQ,
-                                         PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
-                                         2, 0.2)
+            prof = {} if backend == "kernel" else None
+            sim, state, ms = run_sim(model, dict(uplink_compressor=spec),
+                                     backend, PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                                     PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev, 2,
+                                     0.2, prof_out=prof)
             secs = time.perf_counter() - t0
             ran = {k: v - before[k] for k, v in launch_counts().items()}
             check_launches(ran, expect[spec] if backend == "kernel" else (),
@@ -785,7 +886,8 @@ def paper_lm_phase(dev):
                   f"launches {ran} ({secs:.2f}s{PROFILED[backend]})",
                   flush=True)
             if backend == "kernel":
-                print_profile(prof, secs, f"paper_lm {spec}", top=6)
+                print_profile(prof["prof"], prof["secs"],
+                              f"paper_lm {spec}, last round", top=6)
             runs[backend] = (state, ms)
         (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
         pairs = (list(zip(_tensors(sk.params), _tensors(sp.params)))
@@ -821,11 +923,10 @@ def llama_phase(dev, fl_kw, expect, what):
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()
     t0 = time.perf_counter()
-    with profiled_if(True) as prof:
-        peak_log = {}
-        sim, state, ms = run_sim(model, fl_kw, "kernel", LLAMA_CLIENTS,
-                                 LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS, dev, 1,
-                                 0.05, peak_log=peak_log)
+    peak_log, prof = {}, {}
+    sim, state, ms = run_sim(model, fl_kw, "kernel", LLAMA_CLIENTS,
+                             LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS, dev, 1,
+                             0.05, peak_log=peak_log, prof_out=prof)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     check_launches(ran, expect, f"llama3_2_1b {what}")
@@ -842,9 +943,10 @@ def llama_phase(dev, fl_kw, expect, what):
           f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
           f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round, "
           f"ledger == static terms, launches {ran}, peak memory {peak:.1f} "
-          f"GiB (last raised in the {peak_log.get('hop')} hop), {secs:.2f}s "
-          f"under the profiler", flush=True)
-    print_profile(prof, secs, f"llama3_2_1b {what}")
+          f"GiB (last raised in the {peak_log.get('hop')} hop), {secs:.2f}s, "
+          f"the last round under the profiler", flush=True)
+    print_profile(prof["prof"], prof["secs"], f"llama3_2_1b {what}, last "
+                  f"round")
     del sim, state, ms
     torch.cuda.empty_cache()
 
@@ -938,11 +1040,11 @@ def stc_phase(dev):
         for backend in ("kernel", "jax"):
             before = launch_counts()
             t0 = time.perf_counter()
-            with profiled_if(backend == "kernel") as prof:
-                sim, state, ms = run_sim(model, fl_kw, backend,
-                                         PAPER_LM_CLIENTS, PAPER_LM_SEQ,
-                                         PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
-                                         2, 0.2)
+            prof = {} if backend == "kernel" else None
+            sim, state, ms = run_sim(model, fl_kw, backend,
+                                     PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                                     PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev, 2,
+                                     0.2, prof_out=prof)
             secs = time.perf_counter() - t0
             ran = {k: v - before[k] for k, v in launch_counts().items()}
             check_launches(ran, expect if backend == "kernel" else (),
@@ -958,7 +1060,8 @@ def stc_phase(dev):
                   f"launches {ran} ({secs:.2f}s{PROFILED[backend]})",
                   flush=True)
             if backend == "kernel":
-                print_profile(prof, secs, f"paper_lm {label}", top=6)
+                print_profile(prof["prof"], prof["secs"],
+                              f"paper_lm {label}, last round", top=6)
             runs[backend] = (state, ms)
         (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
         gap = float(((mk["loss"] - mp["loss"]).abs() / mp["loss"].abs())
@@ -1042,11 +1145,11 @@ def sketch_phase(dev):
         for backend in ("kernel", "jax"):
             before = launch_counts()
             t0 = time.perf_counter()
-            with profiled_if(backend == "kernel") as prof:
-                sim, state, ms = run_sim(model, fl_kw, backend,
-                                         PAPER_LM_CLIENTS, PAPER_LM_SEQ,
-                                         PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev,
-                                         2, SKETCH_LR)
+            prof = {} if backend == "kernel" else None
+            sim, state, ms = run_sim(model, fl_kw, backend,
+                                     PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                                     PAPER_LM_BATCH, PAPER_LM_ROUNDS, dev, 2,
+                                     SKETCH_LR, prof_out=prof)
             secs = time.perf_counter() - t0
             ran = {k: v - before[k] for k, v in launch_counts().items()}
             check_launches(ran, expect if backend == "kernel" else (),
@@ -1061,7 +1164,8 @@ def sketch_phase(dev):
                   f"launches {ran} ({secs:.2f}s{PROFILED[backend]})",
                   flush=True)
             if backend == "kernel":
-                print_profile(prof, secs, f"paper_lm {label}", top=6)
+                print_profile(prof["prof"], prof["secs"],
+                              f"paper_lm {label}, last round", top=6)
             losses[backend] = ms["loss"]
         gap = float(((losses["kernel"] - losses["jax"]).abs()
                      / losses["jax"].abs()).max())
@@ -2021,6 +2125,450 @@ def llama_async_phase(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: the privacy wire and the scenario's client dynamics
+# ---------------------------------------------------------------------------
+
+def drop_ctx(tree):
+    from repro_torch.compress.secure_agg import drop_mask_ctx
+    return drop_mask_ctx(tree)
+
+
+def run_tensors(state, ms, entropy=True):
+    """params, the comm state (the secagg context dropped), the ledger
+    (without ``uplink_entropy`` unless ``entropy``: masked codes are
+    uniform, so a masked wire's entropy bill is its wire bill) and the
+    loss of a sim run."""
+    led = [v for f, v in ms["ledger"].fields().items()
+           if entropy or f != "uplink_entropy"]
+    return (_tensors(state.params) + _tensors(drop_ctx(state.comm_state))
+            + led + [ms["loss"]])
+
+
+def check_pairs(a, b, what, rtol=None):
+    """Bit-identical tensor pairs (NaN where NaN), or within ``rtol`` (and
+    an atol of ``rtol`` times the pair's largest magnitude)."""
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} tensors against {len(b)}")
+    for x, y in zip(a, b):
+        if rtol is None:
+            ok = same_bits(x, y)
+        else:
+            x, y = x.double(), y.double()
+            scale = float(y.abs().max()) if y.numel() else 0.0
+            ok = x.shape == y.shape and bool(torch.allclose(
+                x, y, rtol=rtol, atol=rtol * scale))
+        if not ok:
+            err = float((x.double() - y.double()).abs().max()) \
+                if x.shape == y.shape else float("nan")
+            fail(f"{what}: tensors differ (max abs err {err})")
+    return len(a)
+
+
+def run_paper(model, fl_kw, backend, dev, what, expect, clients=None,
+              rounds=None, local_steps=2):
+    """One paper_lm sim run (phase 4's clients, seq, batch and rounds
+    unless given; lr 0.2) with its launch check; returns (sim, state, ms,
+    launches, seconds)."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    sim, state, ms = run_sim(model, fl_kw, backend,
+                             clients or PAPER_LM_CLIENTS, PAPER_LM_SEQ,
+                             PAPER_LM_BATCH, rounds or PAPER_LM_ROUNDS, dev,
+                             local_steps, 0.2)
+    secs = time.perf_counter() - t0
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    check_launches(ran, expect, what)
+    return sim, state, ms, ran, secs
+
+
+def code_plane_sums(spec, dev):
+    """One paper_lm-sized leaf (65,536 elements) encoded by 8 clients on
+    the kernel backend, each with its injected context: the masked
+    integer planes summed over the cohort equal the clear planes' sum mod
+    2^w, and with client C/2 left out the sum plus
+    ``dropout_correction`` equals the clear sum of the others."""
+    from repro_torch.compress.api import make_compressor
+    from repro_torch.compress.secure_agg import (_is_int_plane,
+                                                 dropout_correction,
+                                                 inject_mask_ctx)
+    from repro_torch.core.rng import Key
+
+    masked = make_compressor(spec, backend="kernel")
+    n, C = 65_536, PAPER_LM_CLIENTS
+    drop = C // 2
+    key = Key(18).fold_in(0x5eca66)
+    g = torch.Generator(device=dev).manual_seed(18)
+    planes_m, planes_c, clear_d = [], [], None
+    for i in range(C):
+        x = torch.randn(n, generator=g, device=dev) * 0.01
+        st = inject_mask_ctx(masked.init((n,), dev), key, i, C)
+        pm, _ = masked.encode(st, Key(7).fold_in(i), x)
+        ctx = dict(pm).pop("secagg_ctx")
+        body = {k: v for k, v in pm.items() if k != "secagg_ctx"}
+        clear = masked.inner.encode(masked.inner.init((n,), dev),
+                                    Key(7).fold_in(i), x)[0]
+        planes_m.append([t for t in _tensors(body) if _is_int_plane(t)])
+        planes_c.append([t for t in _tensors(clear) if _is_int_plane(t)])
+        if i == drop:
+            clear_d = clear
+        if (ctx["idx"], ctx["cohort"]) != (i, C):
+            fail(f"{spec}: context {ctx['idx']}, {ctx['cohort']}")
+    # the dropped client's whole payload is the template: its plane ids
+    # count its float planes too
+    corr = [t for t in _tensors(dropout_correction(key, drop, C, clear_d))
+            if _is_int_plane(t)]
+    n_planes = len(planes_c[0])
+    for p in range(n_planes):
+        w = torch.iinfo(planes_c[0][p].dtype).bits
+        mod = lambda v: torch.bitwise_and(v, (1 << w) - 1)
+        tot_m = sum(pl[p].to(torch.int64) for pl in planes_m)
+        tot_c = sum(pl[p].to(torch.int64) for pl in planes_c)
+        if not torch.equal(mod(tot_m), mod(tot_c)):
+            fail(f"{spec}: plane {p}'s masked sum over the cohort differs "
+                 f"from the clear sum")
+        part_m = sum(pl[p].to(torch.int64) for i, pl in enumerate(planes_m)
+                     if i != drop)
+        part_c = tot_c - planes_c[drop][p].to(torch.int64)
+        if torch.equal(mod(part_m), mod(part_c)):
+            fail(f"{spec}: plane {p} unmasked without client {drop}")
+        if not torch.equal(mod(part_m + corr[p].to(torch.int64)),
+                           mod(part_c)):
+            fail(f"{spec}: plane {p}: the sum without client {drop} plus "
+                 f"dropout_correction is not the clear sum")
+    return n_planes
+
+
+def privacy_phase(dev):
+    """Slice 8's privacy wire on paper_lm: each PRIVACY_CASES spec masked
+    against its clear run and across backends, the code-plane sums, and
+    dp_rho on the ledger."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    print(f"paper_lm privacy: {PAPER_LM_CLIENTS} clients, seq "
+          f"{PAPER_LM_SEQ}, batch {PAPER_LM_BATCH}, {PAPER_LM_ROUNDS} "
+          f"rounds, E=2 lr=0.2", flush=True)
+    for label, masked, clear, ef, rtol, kernels in PRIV_RUNS:
+        out = {}
+        for tag, spec, backend in (("masked", masked, "kernel"),
+                                   ("masked", masked, "jax"),
+                                   ("clear", clear, "kernel")):
+            what = f"paper_lm privacy {label} {tag} backend={backend}"
+            sim, state, ms, ran, secs = run_paper(
+                model, dict(uplink_compressor=spec, error_feedback=ef),
+                backend, dev, what, kernels if backend == "kernel" else ())
+            losses = check_finite(ms, state, what)
+            check_ledger(sim, ms, PAPER_LM_CLIENTS, what)
+            out[tag, backend] = (state, ms)
+            print(f"{what}: loss per round {fmt(losses)} "
+                  f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
+                  f"entropy={float(ms['ledger'].uplink_entropy[0]):,.0f} "
+                  f"B/round launches {ran} ({secs:.2f}s)", flush=True)
+        mk, mp, ck = out["masked", "kernel"], out["masked", "jax"], \
+            out["clear", "kernel"]
+        n = check_pairs(run_tensors(*mk, entropy=False),
+                        run_tensors(*ck, entropy=False),
+                        f"paper_lm privacy {label}: masked vs clear")
+        if bool((mk[1]["ledger"].uplink_entropy
+                 < ck[1]["ledger"].uplink_entropy).any()):
+            fail(f"paper_lm privacy {label}: masked entropy below clear")
+        if rtol is None:
+            m = check_pairs(run_tensors(*mk), run_tensors(*mp),
+                            f"paper_lm privacy {label}: backends")
+        else:
+            # mu is a sum in another order on the two backends (phase
+            # 4b): the ledger is exact and the losses within rtol, and the
+            # params it drifts over the free-running rounds within 4c's
+            # engine-scope 1e-3
+            what = f"paper_lm privacy {label}: backends"
+            m = check_pairs(list(mk[1]["ledger"].fields().values()),
+                            list(mp[1]["ledger"].fields().values()), what)
+            m += check_pairs([mk[1]["loss"]], [mp[1]["loss"]], what,
+                             rtol=rtol)
+            m += check_pairs(_tensors(mk[0].params), _tensors(mp[0].params),
+                             what, rtol=PRIV_PARAM_RTOL)
+            gap = max(float(((a.double() - b.double()).abs()
+                             / b.double().abs().max()).max())
+                      for a, b in zip(_tensors(mk[0].params),
+                                      _tensors(mp[0].params)))
+        planes = code_plane_sums(masked, dev)
+        across = ("bit-identical" if rtol is None else
+                  f"ledger exact, loss within rtol {rtol}, params within "
+                  f"{PRIV_PARAM_RTOL} of their scale (largest gap {gap:.3g})")
+        print(f"paper_lm privacy {label}: masked == clear bit for bit ({n} "
+              f"tensors: params, EF rows, ledger, loss); backends {across}"
+              f" ({m} tensors); {planes} code planes sum to the clear sum "
+              f"over the cohort, and without client {PAPER_LM_CLIENTS // 2}"
+              f" to it minus dropout_correction", flush=True)
+    # dp_rho rides the ledger: C x 0.5 / sigma^2 in f32 every round
+    what = f"paper_lm privacy {PRIV_DP} backend=kernel"
+    sim, state, ms, ran, secs = run_paper(
+        model, dict(uplink_compressor=PRIV_DP), "kernel", dev, what,
+        ("threshold_sparsify", "qsgd_quantize"))
+    check_finite(ms, state, what)
+    rho = torch.tensor(PAPER_LM_CLIENTS, dtype=torch.float32) * \
+        torch.tensor(0.5 / 0.8 ** 2, dtype=torch.float32)
+    got = ms["ledger"].dp_rho.cpu()
+    if not torch.equal(got, rho.expand_as(got)):
+        fail(f"{what}: dp_rho {got.tolist()} != {float(rho)} a round")
+    print(f"{what}: dp_rho {got.tolist()} a round, {float(got.sum()):.6f} "
+          f"over {PAPER_LM_ROUNDS} rounds (= rounds x {PAPER_LM_CLIENTS} x "
+          f"0.5/0.8^2 in f32); launches {ran} ({secs:.2f}s)", flush=True)
+
+
+def llama_privacy_phase(dev):
+    """llama3_2_1b at full width and depth: EF topk+qsgd:4@fused with DP
+    noise, secure aggregation and mid-round dropout, masked against the
+    same run in the clear; the ledger bills the pre-dropout count."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    model = Model(cfg)
+    fl_kw = dict(LLAMA_PRIV)
+    print(f"llama3_2_1b privacy: {model.param_count():,} params, "
+          f"{cfg.num_layers} layers (no depth cut), {LLAMA_CLIENTS} clients, "
+          f"seq {LLAMA_SEQ}, batch {LLAMA_BATCH}, E=1, {LLAMA_ROUNDS} rounds "
+          f"of {fl_kw} backend=kernel", flush=True)
+    out = {}
+    for secure in (True, False):
+        what = f"llama3_2_1b privacy secure_agg={secure}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        peak_log = {}
+        sim, state, ms = run_sim(model, dict(fl_kw, secure_agg=secure),
+                                 "kernel", LLAMA_CLIENTS, LLAMA_SEQ,
+                                 LLAMA_BATCH, LLAMA_ROUNDS, dev, 1, 0.05,
+                                 peak_log=peak_log)
+        secs = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        check_launches(ran, ("threshold_sparsify", "qsgd_pack"), what)
+        for t in _tensors(state.params):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{what}: non-finite parameters")
+        # every client shipped its payload: billed whether or not it
+        # dropped mid-round
+        check_ledger(sim, ms, LLAMA_CLIENTS, what)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if peak >= LLAMA_PEAK_GIB:
+            fail(f"{what}: peak memory {peak:.1f} GiB, not under "
+                 f"{LLAMA_PEAK_GIB} GiB")
+        print(f"{what}: loss per round {fmt(ms['loss'])}, selected "
+              f"{fmt(ms['selected'])} of {LLAMA_CLIENTS}, billed "
+              f"{LLAMA_CLIENTS} a round (the pre-dropout count), dp_rho "
+              f"{fmt(ms['ledger'].dp_rho)}; launches {ran}; peak memory "
+              f"{peak:.2f} GiB (limit {LLAMA_PEAK_GIB:.0f}; last raised in "
+              f"the {peak_log.get('hop')} hop) on {card_line()}; "
+              f"{secs:.2f}s", flush=True)
+        # on the host, so that the next run's peak is its own
+        out[secure] = [t.cpu() for t in run_tensors(state, ms,
+                                                    entropy=False)]
+        del sim, state, ms
+        torch.cuda.empty_cache()
+    n = check_pairs(out[True], out[False],
+                    "llama3_2_1b privacy: masked vs clear")
+    print(f"llama3_2_1b privacy: masked == clear bit for bit ({n} tensors: "
+          f"params, EF rows, ledger, loss)", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+
+def scenario_phase(dev):
+    """Slice 8's client dynamics on paper_lm: the degenerate
+    SCENARIO_CASES against the scenario-free runs, the square and diurnal
+    traces, dropout under secagg, epoch scaling, the population trace and
+    the async adaptive deadline; every run on both backends,
+    bit-identical."""
+    from repro_torch.compress.residual_store import _leaves
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import scenario as scn
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.data.synthetic import sample_round
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    C = PAPER_LM_CLIENTS
+    print(f"paper_lm scenario: {C} clients, seq {PAPER_LM_SEQ}, batch "
+          f"{PAPER_LM_BATCH}, E=2 lr=0.2 unless a run says otherwise",
+          flush=True)
+    # the degenerate cases: the dynamics hops run and draw identity masks
+    for label, spec, fl_kw, kern, plain in SCN_CASES:
+        out = {}
+        for tag, kw, backend in (("on", fl_kw, "kernel"),
+                                 ("on", fl_kw, "jax"),
+                                 ("off", {}, "kernel")):
+            what = f"paper_lm scenario {label} {tag} backend={backend}"
+            sim, state, ms, ran, secs = run_paper(
+                model, dict(kw, uplink_compressor=spec), backend, dev, what,
+                kern if backend == "kernel" else plain, rounds=SCN_ROUNDS)
+            check_finite(ms, state, what)
+            out[tag, backend] = (state, ms)
+        on, off = out["on", "kernel"], out["off", "kernel"]
+        n = check_pairs(run_tensors(*on), run_tensors(*off),
+                        f"paper_lm scenario {label}: on vs off")
+        m = check_pairs(run_tensors(*on), run_tensors(*out["on", "jax"]),
+                        f"paper_lm scenario {label}: backends")
+        print(f"paper_lm scenario {label} ({spec}, {fl_kw}): equal to the "
+              f"scenario-free run bit for bit ({n} tensors), backends "
+              f"bit-identical ({m}); loss {fmt(on[1]['loss'])}", flush=True)
+
+    # the traces at duty 0.5 over 16 clients: selected = the mask's count
+    for trace in ("square", "diurnal"):
+        fl_kw = dict(uplink_compressor=SEL_SPEC, scenario_trace=trace,
+                     scenario_availability=0.5, scenario_period=6.0,
+                     scenario_seed=1)
+        out = {}
+        for backend in ("kernel", "jax"):
+            what = f"paper_lm scenario {trace} 0.5 backend={backend}"
+            sim, state, ms, ran, secs = run_paper(
+                model, fl_kw, backend, dev, what,
+                ("threshold_sparsify", "qsgd_quantize")
+                if backend == "kernel" else (), clients=SCN_TRACE_CLIENTS)
+            check_finite(ms, state, what)
+            check_algorithm_ledger(sim, ms, what)
+            out[backend] = (state, ms)
+        sc = scn.Scenario(trace=trace, availability=0.5, period=6.0, seed=1)
+        ids = torch.arange(SCN_TRACE_CLIENTS, dtype=torch.int32, device=dev)
+        want = [float(scn.availability_mask(sc, sc.seed, 0.5, r, ids).sum())
+                for r in range(PAPER_LM_ROUNDS)]
+        sel = fmt(out["kernel"][1]["selected"])
+        if sel != want:
+            fail(f"paper_lm scenario {trace}: selected {sel} != the "
+                 f"trace's available counts {want}")
+        m = check_pairs(run_tensors(*out["kernel"]),
+                        run_tensors(*out["jax"]),
+                        f"paper_lm scenario {trace}: backends")
+        print(f"paper_lm scenario {trace} trace, duty 0.5, period 6, "
+              f"{SCN_TRACE_CLIENTS} clients: selected per round {sel}; "
+              f"backends bit-identical ({m} tensors)", flush=True)
+
+    # mid-round dropout under secagg against the clear run: billed before
+    # the dropout, the survivors' rows only in the aggregate
+    out = {}
+    for tag, spec, backend in (("masked", "qsgd:4>>secagg", "kernel"),
+                               ("masked", "qsgd:4>>secagg", "jax"),
+                               ("clear", "qsgd:4", "kernel")):
+        what = f"paper_lm scenario dropout 0.3 {tag} backend={backend}"
+        sim, state, ms, ran, secs = run_paper(
+            model, dict(uplink_compressor=spec, scenario_dropout=0.3),
+            backend, dev, what,
+            ("qsgd_quantize",) if backend == "kernel" else ())
+        check_finite(ms, state, what)
+        check_ledger(sim, ms, C, what)
+        out[tag, backend] = (state, ms)
+    n = check_pairs(run_tensors(*out["masked", "kernel"], entropy=False),
+                    run_tensors(*out["clear", "kernel"], entropy=False),
+                    "paper_lm scenario dropout: masked vs clear")
+    m = check_pairs(run_tensors(*out["masked", "kernel"]),
+                    run_tensors(*out["masked", "jax"]),
+                    "paper_lm scenario dropout: backends")
+    print(f"paper_lm scenario dropout 0.3, qsgd:4>>secagg: selected "
+          f"{fmt(out['masked', 'kernel'][1]['selected'])} of {C}, billed {C}"
+          f" a round; masked == clear bit for bit ({n} tensors), backends "
+          f"bit-identical ({m})", flush=True)
+
+    # epoch scaling at E=4: each client's step budget
+    fl_kw = dict(uplink_compressor=SEL_SPEC, scenario_epoch_scale=0.5)
+    out = {}
+    for backend in ("kernel", "jax"):
+        what = f"paper_lm scenario epoch_scale 0.5 E=4 backend={backend}"
+        sim, state, ms, ran, secs = run_paper(
+            model, fl_kw, backend, dev, what,
+            ("threshold_sparsify", "qsgd_quantize")
+            if backend == "kernel" else (), rounds=2, local_steps=4)
+        check_finite(ms, state, what)
+        out[backend] = (state, ms)
+    steps = [scn.epoch_steps(scn.Scenario(epoch_scale=0.5), 4,
+                             sample_round(fed_data(model, C, PAPER_LM_SEQ,
+                                                   PAPER_LM_BATCH), r, dev)
+                             ["resources"])[0].tolist() for r in range(2)]
+    if len(set(steps[0])) < 2:
+        fail(f"epoch scaling: every client ran {steps[0]} steps")
+    m = check_pairs(run_tensors(*out["kernel"]), run_tensors(*out["jax"]),
+                    "paper_lm scenario epoch_scale: backends")
+    print(f"paper_lm scenario epoch_scale 0.5 at E=4: n_steps per round "
+          f"{steps}; loss {fmt(out['kernel'][1]['loss'])}; backends "
+          f"bit-identical ({m} tensors)", flush=True)
+
+    # the population leg: a square trace over 100,000 clients
+    runs = {}
+    for backend in ("kernel", "jax"):
+        pop = ClientPopulation(**SCN_POP)
+        what = (f"paper_lm scenario population={pop.n_clients:,} square "
+                f"0.5 backend={backend}")
+        before = launch_counts()
+        t0 = time.perf_counter()
+        engine, state, ms, recs, _ = run_population(
+            model, dict(uplink_compressor=POP_SPEC, scenario_trace="square",
+                        scenario_period=4.0, scenario_seed=2), backend, pop,
+            PAPER_LM_SEQ, PAPER_LM_BATCH, SCN_ROUNDS + 1, dev, 2, 0.2)
+        secs = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        check_launches(ran, ("threshold_sparsify", "qsgd_quantize")
+                       if backend == "kernel" else (), what)
+        check_finite(ms, state, what)
+        check_algorithm_ledger(engine, ms, what)
+        want = [float(engine.aux["population"].availability_mask(
+            r, torch.tensor(rec["ids"], dtype=torch.int32, device=dev))
+            .sum()) for r, rec in enumerate(recs)]
+        if fmt(ms["selected"]) != want:
+            fail(f"{what}: selected {fmt(ms['selected'])} != the trace's "
+                 f"{want}")
+        print(f"{what}: selected per round {fmt(ms['selected'])} of "
+              f"{pop.cohort}; {round_times(recs)}; launches {ran} "
+              f"({secs:.2f}s)", flush=True)
+        runs[backend] = (state, ms)
+    pairs = (list(zip(_tensors(runs["kernel"][0].params),
+                      _tensors(runs["jax"][0].params)))
+             + list(zip(_leaves(runs["kernel"][0].comm_state),
+                        _leaves(runs["jax"][0].comm_state))))
+    check_pairs([a for a, _ in pairs], [b for _, b in pairs],
+                "paper_lm scenario population: backends")
+    print(f"paper_lm scenario population: backends bit-identical "
+          f"({len(pairs)} tensors)", flush=True)
+
+    # the async leg: the deadline tracks the 0.5 completion quantile,
+    # dropout 0.2
+    runs = {}
+    for backend in ("kernel", "jax"):
+        what = f"paper_lm scenario async {SCN_ASYNC_TOPO} backend={backend}"
+        before = launch_counts()
+        t0 = time.perf_counter()
+        engine, state, ms, order, _, times, init_s, _, _, _ = run_async(
+            model, dict(ASYNC_FL, scenario_deadline_quantile=0.5,
+                        scenario_dropout=0.2), SCN_ASYNC_TOPO, backend,
+            ASYNC_SLOTS, ASYNC_SEQ, ASYNC_BATCH, SCN_ASYNC_EVENTS, dev, 2,
+            0.2)
+        secs = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        check_launches(ran, ("threshold_sparsify", "qsgd_quantize")
+                       if backend == "kernel" else (), what)
+        check_finite(ms, state, what)
+        check_async_run(engine, ms, what, ASYNC_SLOTS)
+        # one Robbins-Monro step per arrival moves q_est every event
+        q = ms["q_est"].tolist()
+        if any(a == b for a, b in zip(q, q[1:])):
+            fail(f"{what}: q_est did not move every event "
+                 f"{fmt(ms['q_est'])}")
+        # a flush empties the buffer, so its fill is the arrivals since
+        # the last one; below K, the deadline fired it
+        at = [e for e, f in enumerate(ms["flushed"].tolist()) if f]
+        fills = [e - p for e, p in zip(at, [-1] + at[:-1])]
+        flush_t = [round(float(ms["clock"][e]), 4) for e in at]
+        print(f"{what}: {async_line(ms, order, times, init_s)}; flush times "
+              f"{flush_t} with fills {fills}; q_est {fmt(ms['q_est'])}; "
+              f"launches {ran} ({secs:.2f}s)", flush=True)
+        runs[backend] = (state, ms)
+    a = async_tensors(*runs["kernel"]) + [runs["kernel"][1]["q_est"]]
+    b = async_tensors(*runs["jax"]) + [runs["jax"][1]["q_est"]]
+    n = check_pairs(a, b, "paper_lm scenario async: backends")
+    print(f"paper_lm scenario async: backends bit-identical ({n} tensors)",
+          flush=True)
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -2143,7 +2691,8 @@ def main():
                   algorithms_phase,
                   lambda d: llama_algorithm_phase(d, "7b"),
                   lambda d: llama_algorithm_phase(d, "7c"),
-                  selection_phase, async_phase, llama_async_phase):
+                  selection_phase, async_phase, llama_async_phase,
+                  privacy_phase, llama_privacy_phase, scenario_phase):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from repro_torch.compress.wire_format import WIRE_FORMATS
-from repro_torch.device import not_ported, resolve_device
+from repro_torch.device import resolve_device
 
 
 def _has_tensor(tree) -> bool:
@@ -128,13 +128,6 @@ BACKENDS = ("jax", "kernel")
 _REGISTRY: Dict[str, Callable[..., CommTransform]] = {}
 _STAGES: Dict[str, Callable[..., CommTransform]] = {}
 
-# stage names the JAX reference registers that the port has not ported
-_NOT_PORTED = {
-    "secagg": "repro.compress.secure_agg",
-    "dpnoise": "repro.compress.secure_agg",
-}
-
-
 def register(name: str):
     """Register a legacy-name factory (kwargs-driven, e.g. ``qsgd8``)."""
     def deco(fn):
@@ -187,8 +180,6 @@ def _make_stage(token: str, **kw) -> CommTransform:
         name = name.strip()
         if not argstr and name in _REGISTRY:
             stage = _REGISTRY[name](**kw)
-        elif name in _NOT_PORTED:
-            raise not_ported(f"compressor stage {name!r}", _NOT_PORTED[name])
         elif name not in _STAGES:
             known = sorted(set(_REGISTRY) | set(_STAGES))
             raise KeyError(f"unknown compressor stage {token!r}; have {known}")
@@ -209,11 +200,29 @@ def _make_stage(token: str, **kw) -> CommTransform:
 
 def make_compressor(spec: Optional[str], **kw) -> CommTransform:
     """Build a pipeline from a registry name or spec string, e.g.
-    ``make_compressor("topk:0.05>>qsgd:8", backend="kernel")``."""
+    ``make_compressor("topk:0.05>>qsgd:8", backend="kernel")``.
+
+    The privacy stages (``secagg``, ``dpnoise:<sigma>[,<clip>]``) wrap the
+    whole pipeline to their left (``"qsgd:4>>secagg"`` is SecAgg over the
+    qsgd pipeline), and no other stage may follow one."""
     if spec in ("none", None, ""):
         return Identity()
     from repro_torch.compress.pipeline import chain   # late import (cycle)
-    return chain(*[_make_stage(tok, **kw) for tok in spec.split(">>")])
+    from repro_torch.compress import secure_agg       # late import (cycle)
+    pipe, buf = None, []
+    for tok in spec.split(">>"):
+        head = tok.strip().split("@", 1)[0].split(":", 1)[0].strip()
+        if head in secure_agg.PRIVACY_STAGES:
+            inner = chain(*buf) if pipe is None else pipe
+            pipe, buf = secure_agg.make_privacy_stage(tok, inner, **kw), []
+        elif pipe is not None:
+            raise ValueError(
+                f"stage {tok.strip()!r} cannot follow a privacy stage — "
+                f"secagg/dpnoise wrap everything before them; put carrier "
+                f"stages first (e.g. 'topk:0.05>>qsgd:4>>secagg')")
+        else:
+            buf.append(_make_stage(tok, **kw))
+    return pipe if pipe is not None else chain(*buf)
 
 
 def zeros_state(shape, device):

@@ -20,8 +20,13 @@ client and server algorithms' state fields of an ``FLState``
 ``client_controls``, CMFL's ``prev_delta``).  ``async_state_from_jax`` /
 ``async_state_to_jax`` carry the async engine's ``FLState.async_state``
 (the scheduler's vectors on the CPU, the buffered rows, losses, pending
-pipeline rows and slot table on the device).  No function here imports
-JAX.
+pipeline rows and slot table on the device).
+
+A SecAgg stage's state (``mask_key``, ``mask_idx``, ``mask_cohort``,
+``inner``) crosses too.  Its context is injected afresh at every
+dispatch, so only ``inner`` carries information: the port keeps no key
+between dispatches (``mask_key`` is None), and :func:`store_to_jax`
+writes the reference's zero context.  No function here imports JAX.
 """
 from __future__ import annotations
 
@@ -88,7 +93,14 @@ def state_from_jax(template, leaves, device="cpu"):
                                  f"{node.dtype}")
             return t
         if isinstance(node, dict):
-            return {k: fill(node[k]) for k in sorted(node)}
+            out = {}
+            for k in sorted(node):
+                if k == "mask_key" and node[k] is None:
+                    next(it)      # the reference's mask key: not carried
+                    out[k] = None
+                else:
+                    out[k] = fill(node[k])
+            return out
         if isinstance(node, tuple):
             return tuple(fill(v) for v in node)
         return node
@@ -111,7 +123,8 @@ def store_from_jax(state, device="cpu"):
     np.asarray, state)``), as the port's: the same dicts and tuples, each
     array a tensor on ``device``."""
     if isinstance(state, dict):
-        return {k: store_from_jax(v, device) for k, v in state.items()}
+        return {k: None if k == "mask_key" else store_from_jax(v, device)
+                for k, v in state.items()}
     if isinstance(state, (tuple, list)):
         return tuple(store_from_jax(v, device) for v in state)
     return _to_tensor(state).to(device)
@@ -121,7 +134,16 @@ def store_to_jax(state):
     """The port's store state as the reference's, with numpy arrays (the
     inverse of :func:`store_from_jax`)."""
     if isinstance(state, dict):
-        return {k: store_to_jax(v) for k, v in state.items()}
+        out = {k: store_to_jax(v) for k, v in state.items()
+               if k != "mask_key"}
+        if "mask_key" in state:
+            # the zero context: key u32[2], index and cohort 0
+            lead = out["mask_idx"].shape
+            out.update(mask_key=np.zeros(lead + (2,), np.uint32),
+                       mask_idx=np.zeros(lead, np.int32),
+                       mask_cohort=np.zeros(lead, np.int32))
+            out = {k: out[k] for k in state}
+        return out
     if isinstance(state, (tuple, list)):
         return tuple(store_to_jax(v) for v in state)
     return _to_numpy(state)
@@ -165,9 +187,10 @@ def algorithm_state_to_jax(state) -> dict:
     return out
 
 
-# the async scheduler's vectors, which the port keeps on the CPU
+# the async scheduler's vectors, which the port keeps on the CPU (the
+# scenario's in-flight durations and completion-time quantile among them)
 ASYNC_HOST_KEYS = ("clock", "next_done", "version", "server_version",
-                   "buf_w", "buf_tau", "next_deadline")
+                   "buf_w", "buf_tau", "next_deadline", "slot_lat", "q_est")
 
 
 def async_state_from_jax(state, device="cpu") -> dict:

@@ -22,7 +22,17 @@ the server consumes completions in virtual-time order.  One round of
                buffer's mean staleness, bumps the server version and
                re-dispatches the flushed slots on the new model;
     ledger   — one upload per event, the downlink paid per re-dispatched
-               slot at a flush, and the virtual time.
+               slot at a flush, and the virtual time (and one round of
+               zCDP spend per event under ``dpnoise``).
+
+The scenario's client dynamics (:mod:`repro_torch.core.scenario`) apply
+here as in the reference: mid-round dropout is one survival draw per
+arrival, against the slot's in-flight duration, and a dropped upload
+enters the buffer with zero weight; epoch scaling runs through the
+dispatch body; ``deadline_quantile`` > 0 tracks that quantile of the
+completion times (``q_est``, one Robbins-Monro step per arrival) and arms
+each flush deadline at ``clock + q_est``.  Availability traces are
+rejected: completion order replaces the selection hop they would mask.
 
 **The dispatch is the sync engine's** (``engine.make_dispatch``, the same
 object and code as the sim round's wire), and the key schedule is the
@@ -51,6 +61,7 @@ from typing import Any
 import torch
 
 from repro_torch.compress.residual_store import _leaves
+from repro_torch.core import scenario as scn
 from repro_torch.core import server_opt
 from repro_torch.core.rng import PRNGKey
 from repro_torch.core.types import CommLedger, FLConfig, FLState
@@ -124,9 +135,20 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
         raise ValueError(
             f"population.n_clients ({population.n_clients}) must match "
             f"Topology.async_(n_clients={topo.n_clients})")
-    # telemetry, DP and every scenario knob (the availability trace, which
-    # the reference rejects here, among them) raise as not ported
-    eng.check_fl(fl)
+    # scenario dynamics: dropout, epoch scaling and the adaptive deadline
+    # apply; an availability trace has no selection hop to mask here
+    scenario = eng._fl_scenario(fl)
+    if scenario is not None and scenario.availability_on:
+        raise ValueError(
+            "async topology replaces client selection with completion "
+            "order, so scenario availability traces have no hop to mask — "
+            "use scenario_trace='static' / scenario_availability=1.0 (the "
+            "dropout / epoch-scale / deadline-quantile knobs all apply)")
+    adaptive = scenario is not None and scenario.deadline_quantile > 0.0
+    scn_drop = scenario is not None and scenario.dropout > 0.0
+    # the popped slot's in-flight duration, read by both the survival
+    # draw and the completion-time quantile tracker
+    need_lat = adaptive or scn_drop
 
     C = topo.n_clients
     # M: the in-flight slot count; every per-slot vector below is (M,)
@@ -137,7 +159,8 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
     store = (population.make_store(up, model.defs, device)
              if population is not None else None)
     # the sync engine's dispatch body, not a copy of it
-    dispatch = eng.make_dispatch(model, fl, up, down, M, chunk)
+    dispatch = eng.make_dispatch(model, fl, up, down, M, chunk,
+                                 scenario=scenario)
 
     def latencies(batch, key):
         # drawn on the host, where the scheduler lives
@@ -161,9 +184,10 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
             rows0 = comm0
         updates, losses, pending = dispatch(params, batch0, rows0, k_down,
                                             k_up)
+        lat = latencies(batch0, k_sel)
         A = {
             "clock": _f32(0.0),
-            "next_done": latencies(batch0, k_sel),       # all M in flight
+            "next_done": lat,                            # all M in flight
             "version": torch.zeros((M,), dtype=torch.int32),
             "server_version": torch.zeros((), dtype=torch.int32),
             "updates": updates,
@@ -173,6 +197,11 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
             "next_deadline": _f32(deadline if deadline > 0
                                   else float("inf")),
         }
+        if need_lat:
+            A["slot_lat"] = lat.clone()       # each slot's in-flight time
+        if adaptive:
+            A["q_est"] = scn.quantile_init(lat)
+            A["next_deadline"] = A["q_est"].clone()
         if stateful:
             A["pending_comm"] = pending
         if population is not None:
@@ -204,7 +233,19 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
         committed (only a slot's own uploads touch its row, so commit
         order is safe)."""
         st, A, c = ctx["state"], dict(ctx["state"].async_state), ctx["c"]
-        for k, v in (("next_done", float("inf")), ("buf_w", ctx["stale_w"]),
+        w_in = ctx["stale_w"]
+        if scn_drop:
+            # one survival coin per arrival event, exposure = the slot's
+            # in-flight duration; a dropped upload still arrives (shapes
+            # never change) but with zero aggregation weight
+            cid = int(A["slot_client"][c]) if population is not None else c
+            w_in = w_in * scn.survival_draw(scenario, st.round, cid,
+                                            A["slot_lat"][c])
+        if adaptive:
+            # one Robbins-Monro step per observed arrival duration
+            A["q_est"] = scn.quantile_update(A["q_est"], A["slot_lat"][c],
+                                             scenario.deadline_quantile)
+        for k, v in (("next_done", float("inf")), ("buf_w", w_in),
                      ("buf_tau", ctx["tau"])):
             A[k] = A[k].clone()
             A[k][c] = v
@@ -284,7 +325,12 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
         A["buf_w"] = torch.where(mask, 0.0, A["buf_w"])
         A["buf_tau"] = torch.where(mask, 0.0, A["buf_tau"])
         A["server_version"] = new_ver
-        if deadline > 0:
+        if need_lat:
+            A["slot_lat"] = torch.where(mask, lat, A["slot_lat"])
+        if adaptive:
+            # the next deadline is the completion-time quantile estimate
+            A["next_deadline"] = ctx["clock"] + A["q_est"]
+        elif deadline > 0:
             A["next_deadline"] = ctx["clock"] + _f32(deadline)
         if population is not None:
             A["slot_client"] = ids_disp
@@ -301,7 +347,7 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
         never empty here (this event's upload is in it)."""
         st, A = ctx["state"], ctx["A"]
         fire = ctx["fill"] >= K
-        if deadline > 0:
+        if deadline > 0 or adaptive:
             fire = fire or bool(ctx["clock"] >= A["next_deadline"])
         if fire:
             return flush(ctx)
@@ -320,7 +366,9 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
             downlink_wire=n_down * _f32(terms["down_wire"]),
             uplink_dense=_f32(terms["dense"]),
             downlink_dense=n_down * _f32(terms["dense"]),
-            virtual_time=ctx["clock"])
+            virtual_time=ctx["clock"],
+            # one client upload per event: one round of zCDP spend
+            dp_rho=_f32(terms["dp_rho"]) if terms.get("dp_rho") else None)
         return ctx
 
     def hop_finalize(ctx):
@@ -334,6 +382,8 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
             "flushed": ctx["flushed"],
             "ledger": ctx["ledger"],
         }
+        if adaptive:
+            ctx["metrics"]["q_est"] = ctx["A"]["q_est"]
         ctx["new_state"] = FLState(
             params=ctx["new_params"], server_opt_state=ctx["new_sos"],
             control=None, client_controls=None, comm_state=ctx["new_comm"],

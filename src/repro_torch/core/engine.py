@@ -5,14 +5,15 @@ One FL round is a :class:`RoundProgram`, an ordered sequence of hops over a
 plain dict context, as in the reference (the ``sim`` topology):
 
     rng -> [cohort] -> downlink -> [dane_gradient] -> local_update
-        -> select -> [cmfl] -> wire -> [control] -> server_opt -> ledger
-        -> finalize
+        -> select -> [scenario_dropout] -> [cmfl] -> wire -> [control]
+        -> server_opt -> ledger -> finalize
 
 built on the shared dispatch body (:func:`make_dispatch`: ``downlink``,
 ``local_update`` / ``client_updates``, ``global_gradient``,
 ``wire_rows``, ``aggregate_rows``).  The bracketed hops are there only
 when their feature is on: a population's cohort, FedDANE's gradient
-round, CMFL's relevance filter and SCAFFOLD's control variates.  The reference's
+round, the scenario's mid-round dropout, CMFL's relevance filter and
+SCAFFOLD's control variates.  The reference's
 ``vmap`` over clients is a Python loop over the client dim here, and its
 ``lax.scan`` over rounds is the Python loop of :func:`run_rounds`.
 
@@ -33,33 +34,39 @@ streaming :class:`~repro_torch.core.population.ClientPopulation`
 (``population=``: a ``cohort`` hop after ``rng``, the dispatch width set
 to the cohort, and the per-client pipeline state in a ``ResidualStore``).
 ``async`` (:mod:`repro_torch.core.async_engine`) is the virtual-clock
-FedBuff / FedAsync event engine on the same dispatch body.  Every other
-knob raises ``NotImplementedError`` naming the reference module that has
-it.
+FedBuff / FedAsync event engine on the same dispatch body.  Both take the
+privacy wire (``secagg`` / ``dpnoise`` in the spec or ``FLConfig
+.secure_agg`` / ``dp_sigma`` / ``dp_clip``: the mask context is injected
+per client and leaf in ``wire_rows``) and the scenario's client dynamics
+(:mod:`repro_torch.core.scenario`: availability traces, mid-round
+dropout, per-client step budgets).  Every other knob raises
+``NotImplementedError`` naming the reference module that has it.
 The client and server algorithms' state runs leaf by leaf: no hop builds
 a concatenation of the model or of C clients' rows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.compress.api import make_compressor
 from repro_torch.compress.pipeline import error_feedback, momentum_correction
+from repro_torch.compress.secure_agg import (DPNoise, MASK_TAG, SecAgg,
+                                             bind_n_leaves, has_mask_ctx,
+                                             inject_mask_ctx)
+from repro_torch.core import scenario as scn_mod
 from repro_torch.core import selection as sel
 from repro_torch.core import server_opt
 from repro_torch.core.rng import PRNGKey
 from repro_torch.core.types import CommLedger, FLConfig, FLState
+from repro_torch.data.pipeline import capability_latency
 from repro_torch.device import not_ported, resolve_device
 from repro_torch.models.layers import scalar_like
 from repro_torch.models.model import Model
 
 _ALGORITHMS = ("fedavg", "fedsgd", "fedprox", "scaffold", "feddane")
-_SCENARIO_FIELDS = ("scenario_trace", "scenario_period",
-                    "scenario_availability", "scenario_dropout",
-                    "scenario_epoch_scale", "scenario_deadline_quantile")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,14 +141,8 @@ def check_fl(fl: FLConfig) -> None:
     """Reject the reference's knobs this slice does not run."""
     if fl.algorithm not in _ALGORITHMS:
         raise not_ported(f"algorithm={fl.algorithm!r}", "repro.core.engine")
-    if fl.secure_agg or fl.dp_sigma > 0 or fl.dp_clip > 0:
-        raise not_ported("secure aggregation / DP noise",
-                         "repro.compress.secure_agg")
     if fl.telemetry:
         raise not_ported("telemetry", "repro.obs.telemetry")
-    default = FLConfig()
-    if any(getattr(fl, f) != getattr(default, f) for f in _SCENARIO_FIELDS):
-        raise not_ported("scenario client dynamics", "repro.core.scenario")
 
 
 def _make_uplink(fl: FLConfig, fraction: float):
@@ -152,10 +153,11 @@ def _make_uplink(fl: FLConfig, fraction: float):
 
 
 def uplink_pipeline(fl: FLConfig):
-    """The uplink CommPipeline from config: the spec plus the stateful
-    correction wrapper — DGC momentum correction if ``dgc_momentum`` is set
-    (with the warm-up sparsity schedule when ``dgc_warmup_rounds`` > 0),
-    else error feedback for biased pipelines."""
+    """The uplink CommPipeline from config: the spec, the privacy knobs
+    (:func:`_apply_privacy`), then the stateful correction wrapper — DGC
+    momentum correction if ``dgc_momentum`` is set (with the warm-up
+    sparsity schedule when ``dgc_warmup_rounds`` > 0), else error feedback
+    for biased pipelines."""
     check_fl(fl)
     if fl.dgc_warmup_rounds > 0 and fl.dgc_momentum <= 0.0:
         raise ValueError("dgc_warmup_rounds is a DGC knob — it needs "
@@ -176,11 +178,24 @@ def uplink_pipeline(fl: FLConfig):
                 "dgc_warmup_rounds needs a fraction-kwarg-driven uplink "
                 f"spec (e.g. 'topk' + topk_fraction); "
                 f"{fl.uplink_compressor!r} ignores the warm-up widening")
+    up = _apply_privacy(fl, up)
     if fl.dgc_momentum > 0.0 and not up.is_identity:
         up = momentum_correction(up, fl.dgc_momentum, warmup_rounds=warmup,
                                  final_fraction=fl.topk_fraction)
     elif up.biased and fl.error_feedback:
         up = error_feedback(up)
+    return up
+
+
+def _apply_privacy(fl: FLConfig, up):
+    """The FLConfig privacy knobs as spec-suffix equivalents: dpnoise at
+    the wire boundary first, secagg masking outermost; EF / DGC wrap
+    outside both, so residuals come from the unmasked decode."""
+    if fl.dp_sigma > 0.0 or fl.dp_clip > 0.0:
+        clip = fl.dp_clip if fl.dp_clip > 0.0 else float("inf")
+        up = DPNoise(up, fl.dp_sigma, clip)
+    if fl.secure_agg and not up.is_identity:
+        up = SecAgg(up)   # raises with the carrier rule for float pipelines
     return up
 
 
@@ -190,6 +205,8 @@ def ledger_terms(model: Model, fl: FLConfig):
     down = make_compressor(fl.downlink_compressor, block=fl.qsgd_block,
                            backend=fl.backend, wire_format=fl.wire_format)
     sizes = model.param_sizes()
+    # dpnoise splits its joint L2 clip budget across this model's leaves
+    bind_n_leaves(up, len(sizes))
     # SCAFFOLD ships control variates, FedDANE ships a gradient round: 2x
     scaff = 2.0 if fl.algorithm in ("scaffold", "feddane") else 1.0
     t = {
@@ -204,14 +221,17 @@ def ledger_terms(model: Model, fl: FLConfig):
 
 def _make_ledger(terms: dict, n_sel) -> CommLedger:
     """``n_sel * term`` in float32, as the reference's f32 scalar times a
-    weakly-typed Python float."""
+    weakly-typed Python float; ``dp_rho`` (the zCDP spent) only when the
+    uplink has noise."""
     f32 = lambda v: n_sel * torch.tensor(v, dtype=torch.float32,
                                          device=n_sel.device)
     return CommLedger(uplink_wire=f32(terms["up_wire"]),
                       uplink_entropy=f32(terms["up_entropy"]),
                       downlink_wire=f32(terms["down_wire"]),
                       uplink_dense=f32(terms["dense"]),
-                      downlink_dense=f32(terms["dense"]))
+                      downlink_dense=f32(terms["dense"]),
+                      dp_rho=(f32(terms["dp_rho"]) if terms.get("dp_rho")
+                              else None))
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +247,16 @@ def _value_and_grad(model: Model, params: dict, batch_c, chunk):
 
 
 def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk,
-                   control=None, c_i=None, global_grad=None):
+                   control=None, c_i=None, global_grad=None, n_steps=None):
     """One client's local training.  Returns (delta, mean_loss,
     first_loss, new_c_i).  E = 1 fedavg/fedsgd takes the reference's fast
     path: ``-lr * g`` in the parameter dtype, then cast to the delta dtype.
+
+    ``n_steps`` (the scenario's step budget, an int in [1, E]) runs the
+    first ``n_steps`` of the E local steps: the reference's later steps
+    keep the params, so stopping there is the same arithmetic, and the
+    mean loss is the sum of the E losses (0 for the skipped steps) over
+    ``n_steps``.
 
     ``scaffold`` adds ``(control - c_i)``, cast to the gradient's dtype, to
     every step's gradient and returns ``new_c_i = c_i - control -
@@ -258,7 +284,7 @@ def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk,
     scaffold = fl.algorithm == "scaffold"
     p_c = dict(params)
     losses = []
-    for _ in range(E):
+    for _ in range(E if n_steps is None else int(n_steps)):
         loss, g = _value_and_grad(model, p_c, batch_c, chunk)
         losses.append(loss)
         step = {}
@@ -281,7 +307,13 @@ def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk,
         new_c_i = {n: c_i[n] - control[n]
                    - delta[n] / scalar_like(E * lr, delta[n])
                    for n in params}
-    return delta, torch.stack(losses).mean(), losses[0], new_c_i
+    if n_steps is None:
+        mean_loss = torch.stack(losses).mean()
+    else:
+        pad = [torch.zeros_like(losses[0])] * (E - len(losses))
+        mean_loss = torch.stack(losses + pad).sum() / scalar_like(
+            float(len(losses)), losses[0])
+    return delta, mean_loss, losses[0], new_c_i
 
 
 # ---------------------------------------------------------------------------
@@ -331,13 +363,21 @@ class Dispatch:
     on its own batch, state and keys (the uplink key splits C ways
     either way), so a subset's rows are bit-identical to the same rows of
     a full dispatch.  Calling the object is one whole dispatch
-    generation, the async engine's: downlink, local update, wire."""
+    generation, the async engine's: downlink, local update, wire.
+
+    ``epoch_steps(batch) -> (n_steps, scale)`` (the scenario's per-client
+    step budgets, C-led) is set only when the scenario's epoch scaling is
+    on; the local-update stages then take ``n_steps=``.  With a SecAgg
+    stage in the uplink, ``wire_rows`` injects each client's mask context:
+    the key ``k_up.fold_in(MASK_TAG).fold_in(leaf)``, the client's lane
+    (its index among the C, also for a subset) and the cohort C."""
     downlink: Callable
     local_update: Callable
     client_updates: Callable
     global_gradient: Callable
     wire_rows: Callable
     aggregate_rows: Callable
+    epoch_steps: Optional[Callable] = None
 
     @staticmethod
     def model_batch(batch) -> dict:
@@ -350,16 +390,25 @@ class Dispatch:
         """``(decoded rows, losses, new comm_state rows)`` of the listed
         clients (all when None) trained from ``params``' broadcast."""
         params = self.downlink(params, k_down)
-        deltas, losses, _ = self.local_update(
-            params, self.model_batch(batch), clients=clients)
+        if self.epoch_steps is not None:
+            n_steps, _ = self.epoch_steps(batch)
+            deltas, losses, _ = self.local_update(
+                params, self.model_batch(batch), clients=clients,
+                n_steps=n_steps)
+        else:
+            deltas, losses, _ = self.local_update(
+                params, self.model_batch(batch), clients=clients)
         rows, new_comm = self.wire_rows(deltas, comm_state, k_up,
                                         clients=clients)
         return rows, losses, new_comm
 
 
 def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
-                  chunk: int) -> Dispatch:
+                  chunk: int, scenario=None) -> Dispatch:
+    """The shared dispatch body over ``C`` clients; ``scenario`` with
+    ``epoch_scale > 0`` attaches the per-client step budgets."""
     stateful = up.stateful
+    masked = has_mask_ctx(up)
 
     def downlink(params, k_down):
         # every leaf roundtrips with the same key, as the reference's
@@ -371,7 +420,7 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
 
     def client_updates(params, model_batch, control=None,
                        client_controls=None, global_grad=None,
-                       clients=None):
+                       clients=None, n_steps=None):
         cs = range(C) if clients is None else clients
         ddt = torch.bfloat16 if fl.delta_dtype == "bf16" else torch.float32
         deltas = {n: torch.empty((len(cs),) + tuple(p.shape), dtype=ddt,
@@ -387,7 +436,8 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
             c_i = (None if client_controls is None else
                    {n: v[c] for n, v in client_controls.items()})
             d, loss, first_loss, nci = _client_update(
-                model, fl, params, b, chunk, control, c_i, global_grad)
+                model, fl, params, b, chunk, control, c_i, global_grad,
+                n_steps=None if n_steps is None else int(n_steps[c]))
             for n, v in d.items():
                 deltas[n][j] = v
             if new_ci is not None:
@@ -398,8 +448,28 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
             first.append(first_loss)
         return deltas, torch.stack(losses), torch.stack(first), new_ci
 
-    def local_update(params, model_batch, clients=None):
-        return client_updates(params, model_batch, clients=clients)[:3]
+    def local_update(params, model_batch, clients=None, n_steps=None):
+        return client_updates(params, model_batch, clients=clients,
+                              n_steps=n_steps)[:3]
+
+    epoch_steps = None
+    if scenario is not None and scenario.epoch_scale > 0.0:
+        if fl.local_steps <= 1:
+            raise ValueError(
+                "scenario epoch scaling needs local_steps > 1 — there is "
+                "no per-client budget to truncate at a single local step")
+        if fl.algorithm not in ("fedavg", "fedsgd", "fedprox"):
+            raise ValueError(
+                f"scenario epoch scaling truncates the local scan per "
+                f"client — the {fl.algorithm!r} control-variate bookkeeping "
+                f"assumes a fixed step count; use fedavg/fedsgd/fedprox")
+
+        def epoch_steps(batch):
+            res = batch.get("resources")
+            if res is None:
+                res = torch.ones((C, 4), dtype=torch.float32,
+                                 device=batch["tokens"].device)
+            return scn_mod.epoch_steps(scenario, fl.local_steps, res)
 
     def global_gradient(params, model_batch):
         # each client's gradient at the broadcast params, accumulated in
@@ -426,10 +496,15 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
             n = flat.shape[1]
             dec = torch.empty_like(flat)
             new_states = []
+            # the secagg context of this hop: a round- and leaf-shared
+            # mask key, the client's lane as ring index, cohort C
+            mkey = k_up.fold_in(MASK_TAG).fold_in(li) if masked else None
             for j, c in enumerate(cs):
                 r = rngs_up[c].fold_in(li)
                 st = (_index_state(comm_state[li], c) if stateful
                       else up.init((n,), device=flat.device))
+                if masked:
+                    st = inject_mask_ctx(st, mkey, c, C)
                 payload, nst = up.encode(st, r, flat[j])
                 dec[j] = up.decode(payload, n)
                 new_states.append(nst)
@@ -445,7 +520,7 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
     return Dispatch(downlink=downlink, local_update=local_update,
                     client_updates=client_updates,
                     global_gradient=global_gradient, wire_rows=wire_rows,
-                    aggregate_rows=aggregate_rows)
+                    aggregate_rows=aggregate_rows, epoch_steps=epoch_steps)
 
 
 def comm_state_init(pipe, params: dict, C: int, device):
@@ -467,9 +542,26 @@ def comm_state_init(pipe, params: dict, C: int, device):
 # The server-topology round program
 # ---------------------------------------------------------------------------
 
+def _fl_scenario(fl: FLConfig):
+    """The FLConfig's scenario, or None when every knob is at its default:
+    the builders then add no scenario hop at all."""
+    scn = scn_mod.Scenario.from_fl(fl)
+    return scn if scn.enabled else None
+
+
+def _attach_scenario(population, scenario):
+    """Give the population the scenario's availability trace (its mask and
+    the selection hop then share one schedule); the population keeps its
+    own rate.  A no-op without a scenario or when one is attached."""
+    if (scenario is None or population is None
+            or population.scenario is not None):
+        return population
+    return dataclasses.replace(population, scenario=scenario)
+
+
 def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                           C: int, population=None, store=None,
-                          device=None) -> RoundProgram:
+                          device=None, scenario=None) -> RoundProgram:
 
     def hop_rng(ctx):
         # the reference's split: (local, downlink, selection, uplink,
@@ -494,10 +586,15 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
 
     def hop_local_update(ctx):
         st = ctx["state"]
+        kw = {}
+        if dispatch.epoch_steps is not None:
+            # the scenario's per-client step budgets from the FedMCCS
+            # capability profile
+            kw["n_steps"], _ = dispatch.epoch_steps(ctx["batch"])
         deltas, losses, first_losses, new_ci = dispatch.client_updates(
             ctx.pop("params"), Dispatch.model_batch(ctx["batch"]),
             control=st.control, client_controls=st.client_controls,
-            global_grad=ctx.pop("global_grad", None))
+            global_grad=ctx.pop("global_grad", None), **kw)
         ctx.update(deltas=deltas, losses=losses, first_losses=first_losses,
                    new_ci=new_ci)
         return ctx
@@ -508,17 +605,21 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         ctx["ids"] = population.cohort_ids(ctx["state"].round, device)
         return ctx
 
+    def _resources(ctx):
+        res = ctx["batch"].get("resources")
+        if res is None:
+            res = torch.ones((C, 4), dtype=torch.float32,
+                             device=ctx["losses"].device)
+        return res
+
     def _select(ctx, availability=None):
         batch, dev = ctx["batch"], ctx["losses"].device
         sizes = batch.get("sizes")
         if sizes is None:
             sizes = torch.ones((C,), dtype=torch.float32, device=dev)
-        resources = batch.get("resources")
-        if resources is None:
-            resources = torch.ones((C, 4), dtype=torch.float32, device=dev)
         ctx["weights"] = sel.select(fl, ctx["r_sel"],
                                     losses=ctx["first_losses"],
-                                    resources=resources, sizes=sizes,
+                                    resources=_resources(ctx), sizes=sizes,
                                     availability=availability)
         return ctx
 
@@ -526,10 +627,35 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         return _select(ctx)
 
     def hop_select_available(ctx):
-        # the population's per-(id, round) availability draw zero-weights
-        # the sampled clients that are offline this round
+        # the population's per-(id, round) availability draw (its rate,
+        # the attached scenario's trace) zero-weights the sampled clients
+        # that are offline this round
         return _select(ctx, population.availability_mask(ctx["state"].round,
                                                          ctx["ids"]))
+
+    def hop_select_trace(ctx):
+        # the dense path: the scenario's trace over the static client
+        # slots (the ids are the lanes)
+        return _select(ctx, scn_mod.availability_mask(
+            scenario, scenario.seed, scenario.availability,
+            ctx["state"].round,
+            torch.arange(C, dtype=torch.int32, device=device)))
+
+    def hop_scenario_dropout(ctx):
+        # mid-round dropout: a survival draw per client against the
+        # round's elapsed virtual time (the capability latency); a dropped
+        # client is a zero-weight row (under secagg its masked codes still
+        # arrive and unmask per client) and is billed by the ledger
+        ids = ctx.get("ids")
+        if ids is None:
+            ids = torch.arange(C, dtype=torch.int32, device=device)
+        survive = scn_mod.survival_mask(scenario, ctx["state"].round, ids,
+                                        capability_latency(_resources(ctx)))
+        weights = ctx["weights"]
+        selected_before = (weights > 0).to(torch.float32)
+        ctx["weights"] = weights * survive
+        ctx["scn_dropped"] = (selected_before * (1.0 - survive)).sum()
+        return ctx
 
     def hop_cmfl(ctx):
         # CMFL: a client whose raw update agrees in sign with the previous
@@ -619,7 +745,13 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         return ctx
 
     def hop_ledger(ctx):
-        ctx["ledger"] = _make_ledger(terms, ctx["n_sel"])
+        billed = ctx["n_sel"]
+        if dropout:
+            # a client dropped mid-round already shipped its payload (under
+            # secagg its masked codes must arrive for the masks to
+            # cancel), so the bill is the pre-dropout selection
+            billed = billed + ctx["scn_dropped"]
+        ctx["ledger"] = _make_ledger(terms, billed)
         return ctx
 
     def hop_finalize(ctx):
@@ -639,15 +771,23 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
             prev_delta=ctx["agg"] if fl.cmfl_threshold > 0 else None)
         return ctx
 
-    available = population is not None and population.availability_active
+    if population is not None and population.availability_active:
+        select = hop_select_available
+    elif (population is None and scenario is not None
+          and scenario.availability_on):
+        select = hop_select_trace
+    else:
+        select = hop_select
+    dropout = scenario is not None and scenario.dropout > 0.0
     hops = [("rng", hop_rng)]
     if population is not None:
         hops.append(("cohort", hop_cohort))
     hops.append(("downlink", hop_downlink))
     if fl.algorithm == "feddane":
         hops.append(("dane_gradient", hop_dane_gradient))
-    hops += [("local_update", hop_local_update),
-             ("select", hop_select_available if available else hop_select)]
+    hops += [("local_update", hop_local_update), ("select", select)]
+    if dropout:
+        hops.append(("scenario_dropout", hop_scenario_dropout))
     if fl.cmfl_threshold > 0:
         hops.append(("cmfl", hop_cmfl))
     # a stateless pipeline keeps no per-client rows: no store
@@ -665,6 +805,8 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
     C = topo.n_clients
     terms, up, down = ledger_terms(model, fl)
     scaffold = fl.algorithm == "scaffold"
+    scenario = _fl_scenario(fl)
+    population = _attach_scenario(population, scenario)
     store, aux = None, {}
     if population is not None:
         if scaffold:
@@ -678,10 +820,11 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
         C = population.cohort           # dispatch width = the cohort slice
         store = population.make_store(up, model.defs, device)
         aux = dict(population=population, cohort=C, store=store)
-    dispatch = make_dispatch(model, fl, up, down, C, chunk)
+    dispatch = make_dispatch(model, fl, up, down, C, chunk,
+                             scenario=scenario)
     program = _build_server_program(fl, terms, dispatch, C,
                                     population=population, store=store,
-                                    device=device)
+                                    device=device, scenario=scenario)
 
     def state_from_params(params):
         def zeros(lead=()):

@@ -66,8 +66,10 @@ class ClientPopulation:
     ``capacity`` bounds the residual store (0 means ``min(n_clients, 2 *
     cohort)``).  ``availability < 1.0`` drops each sampled client i.i.d.
     per round through a per-id draw (the selection hop zero-weights it);
-    at 1.0 no draw is made.  ``scenario`` would give the draw a
-    time-varying trace; the port has the static one only."""
+    at 1.0 no draw is made.  ``scenario`` (a :class:`repro_torch.core
+    .scenario.Scenario`, attached by the engine from ``FLConfig
+    .scenario_*``) gives the draw its trace: ``square`` or ``diurnal``
+    around this population's own rate."""
     n_clients: int
     cohort: int = 0
     capacity: int = 0
@@ -144,12 +146,13 @@ class ClientPopulation:
         """Whether the selection hop draws a mask: below full availability
         or under a time-varying trace."""
         return (self.availability < 1.0
-                or (self.scenario is not None
-                    and self.scenario.trace != "static"))
+                or (self.scenario is not None and self.scenario.diurnal))
 
     def availability_mask(self, round_idx, ids):
-        """(M,) f32 in {0, 1}: this round's per-id availability draws
-        (``core.scenario``'s shared implementation)."""
+        """(M,) f32 in {0, 1}: this round's per-id availability draws,
+        i.i.d. Bernoulli or the attached scenario's trace
+        (``core.scenario``'s shared implementation, the one the dense
+        selection hop calls)."""
         return _scn.availability_mask(self.scenario, self.seed,
                                       self.availability, round_idx, ids)
 

@@ -3,14 +3,15 @@
 The reference threads ``jax.random`` keys through every hop: ``split`` per
 round, per client, ``fold_in`` per leaf and per chain stage, and finally a
 ``uniform`` draw for QSGD's stochastic rounding (and UVeQ's dither and
-RandMask's scores), a ``normal`` draw for RandMask's noise, or a
-``randint`` / ``permutation`` draw for a population's cohort.  The port
+RandMask's scores), a ``normal`` draw for RandMask's and DPNoise's noise,
+a ``randint`` / ``permutation`` draw for a population's cohort, or a
+``bits`` draw for a SecAgg ring mask.  The port
 keeps the same key *structure* with :class:`Key`, a counter path hashed
 into the seed of a ``torch.Generator`` on the device at the draw.  It does
 not reproduce ``jax.random``'s bits; a test that needs the reference's
-draws passes its own object with the same six methods (``split``,
-``fold_in``, ``uniform``, ``normal``, ``randint`` and ``permutation``),
-backed by ``jax.random``.
+draws passes its own object with the same seven methods (``split``,
+``fold_in``, ``uniform``, ``normal``, ``randint``, ``permutation`` and
+``bits``), backed by ``jax.random``.
 """
 from __future__ import annotations
 
@@ -73,6 +74,14 @@ class Key:
         """A random permutation of ``range(n)``, int64 on ``device``."""
         return torch.randperm(int(n), generator=self.generator(device),
                               dtype=torch.int64, device=device)
+
+    def bits(self, shape, width: int, device) -> torch.Tensor:
+        """Full-entropy integers in [0, 2^width) of ``shape`` on
+        ``device``, as int64 (``width`` 8, 16 or 32: the reference's
+        ``jax.random.bits`` in ``uint{width}``)."""
+        return torch.randint(0, 1 << int(width), tuple(shape),
+                             generator=self.generator(device),
+                             dtype=torch.int64, device=device)
 
 
 def uniform_between(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

@@ -42,23 +42,28 @@ uploads).  With ``--population`` the slots are the cohort:
         --async --clients 8 --buffer-size 4 --latency-profile heavy_tail \
         --compressor "topk:0.05>>qsgd:8" --backend kernel --rounds 32
 
+Privacy rides the spec, as in the reference (which has no privacy
+flags): ``--compressor "topk:0.05>>qsgd:4>>dpnoise:0.8>>secagg"`` clips
+and noises each client's update and masks its integer code planes.  The
+``--scenario-*`` flags set the client dynamics (``core.scenario``): an
+availability ``--scenario-trace`` (static, square or diurnal, with
+``--scenario-period``) at ``--scenario-availability``, mid-round
+``--scenario-dropout``, per-client step budgets ``--scenario-epoch-scale``
+and, under ``--async``, a flush deadline tracking
+``--scenario-deadline-quantile``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \
+        --clients 16 --scenario-trace square --scenario-availability 0.5 \
+        --scenario-dropout 0.3 --compressor "qsgd:4>>secagg"
+
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
-``--device cpu`` is given.  The reference CLI's mesh, scenario (other
-than ``--scenario-availability`` under ``--population``) and tracing
-options are not ported yet; the other ``--scenario-*`` flags raise.
+``--device cpu`` is given.  The reference CLI's mesh, hierarchical,
+checkpoint and tracing options are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import time
-
-# the reference's other --scenario-* flags and their defaults
-_NOT_PORTED_SCENARIO = (("--scenario-trace", "static"),
-                        ("--scenario-period", 24.0),
-                        ("--scenario-dropout", 0.0),
-                        ("--scenario-epoch-scale", 0.0),
-                        ("--scenario-deadline-quantile", 0.0),
-                        ("--scenario-seed", 0))
 
 
 def _parse(argv=None):
@@ -114,12 +119,28 @@ def _parse(argv=None):
                     help="residual-store eviction: drop the evicted "
                          "client's pipeline state, or fold it into the "
                          "count-sketch tail")
+    ap.add_argument("--scenario-trace", default="static",
+                    choices=["static", "diurnal", "square"],
+                    help="client availability trace: static = i.i.d. "
+                         "Bernoulli, square = phase-shifted duty windows, "
+                         "diurnal = sinusoid-modulated Bernoulli")
+    ap.add_argument("--scenario-period", type=float, default=24.0,
+                    help="availability trace period, in rounds")
     ap.add_argument("--scenario-availability", type=float, default=1.0,
-                    help="per-round availability rate in (0, 1] of the "
-                         "sampled clients (population mode only)")
-    # reference options that the port does not run: set, they raise
-    for flag, default in _NOT_PORTED_SCENARIO:
-        ap.add_argument(flag, type=type(default), default=default)
+                    help="availability duty-cycle rate in (0, 1]; sets "
+                         "both the dense selection hop's rate and the "
+                         "population's under --population")
+    ap.add_argument("--scenario-dropout", type=float, default=0.0,
+                    help="mid-round dropout hazard per unit virtual time; "
+                         "dropped clients become zero-weight rows")
+    ap.add_argument("--scenario-epoch-scale", type=float, default=0.0,
+                    help="floor in (0, 1] of the per-client local-epoch "
+                         "scale (FedMCCS capability latency); 0 disables")
+    ap.add_argument("--scenario-deadline-quantile", type=float, default=0.0,
+                    help="async: the flush deadline tracks this "
+                         "completion-time quantile; 0 disables")
+    ap.add_argument("--scenario-seed", type=int, default=0,
+                    help="seed for the scenario's phase and dropout draws")
     ap.add_argument("--seq", type=int, default=48)
     ap.add_argument("--batch-per-client", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -138,15 +159,9 @@ def main(argv=None):
     from repro_torch.core.types import FLConfig
     from repro_torch.data.synthetic import (FedDataConfig, eval_batch,
                                             sample_round)
-    from repro_torch.device import not_ported, resolve_device
+    from repro_torch.device import resolve_device
     from repro_torch.models.model import Model
 
-    for flag, default in _NOT_PORTED_SCENARIO:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise not_ported(flag, "repro.core.scenario")
-    if args.scenario_availability != 1.0 and args.population <= 0:
-        raise not_ported("--scenario-availability without --population",
-                         "repro.core.scenario")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     model = Model(cfg)
@@ -159,7 +174,14 @@ def main(argv=None):
                   async_buffer_size=args.buffer_size,
                   staleness_alpha=args.staleness_alpha,
                   latency_profile=args.latency_profile,
-                  async_flush_deadline=args.flush_deadline, seed=args.seed)
+                  async_flush_deadline=args.flush_deadline,
+                  scenario_trace=args.scenario_trace,
+                  scenario_period=args.scenario_period,
+                  scenario_availability=args.scenario_availability,
+                  scenario_dropout=args.scenario_dropout,
+                  scenario_epoch_scale=args.scenario_epoch_scale,
+                  scenario_deadline_quantile=args.scenario_deadline_quantile,
+                  scenario_seed=args.scenario_seed, seed=args.seed)
     if args.population > 0:
         return _population(args, cfg, model, fl, device)
     if args.async_mode:
@@ -264,6 +286,8 @@ def _population(args, cfg, model, fl, device):
     from repro_torch.data.synthetic import FedDataConfig
 
     N = args.population
+    # one availability flag for both paths: the population keeps the
+    # rate, the scenario (attached by the engine) shapes the trace
     pop = ClientPopulation(n_clients=N, cohort=min(args.cohort, N),
                            capacity=args.store_capacity,
                            eviction=args.eviction,
@@ -296,6 +320,7 @@ def _population(args, cfg, model, fl, device):
         return state, ms
     for i in range(args.rounds):
         print(f"round {i:>4} loss={float(ms['loss'][i]):.3f} "
+              f"selected={int(ms['selected'][i])} "
               f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB",
               flush=True)
     print(f"{args.rounds} rounds in {secs:.2f}s on {device}")

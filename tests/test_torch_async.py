@@ -342,8 +342,11 @@ def test_async_guards_match_reference(kw, topo_kw, match):
 
 @pytest.mark.parametrize("kw,module", [
     (dict(telemetry=True), "repro.obs.telemetry"),
-    (dict(scenario_availability=0.5), "repro.core.scenario"),
-    (dict(dp_sigma=1.0), "repro.compress.secure_agg")])
+    # the ported scenario and privacy knobs leave the rejection in place
+    (dict(telemetry=True, scenario_deadline_quantile=0.5),
+     "repro.obs.telemetry"),
+    (dict(telemetry=True, uplink_compressor="qsgd:4>>dpnoise:1.0>>secagg"),
+     "repro.obs.telemetry")])
 def test_async_unported_knobs_raise(kw, module):
     _, mt = models()
     with pytest.raises(NotImplementedError, match=module):

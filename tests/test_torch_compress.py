@@ -133,11 +133,10 @@ def test_spec_grammar_names_and_errors():
         make_compressor("qsgd:8@gpu")
     with pytest.raises(ValueError, match="no packed wire format"):
         make_compressor("qsgd:8@fused")
-    with pytest.raises(NotImplementedError,
-                       match="repro.compress.secure_agg"):
-        make_compressor("dpnoise:0.5")
-    with pytest.raises(NotImplementedError, match="repro.compress.secure_agg"):
-        make_compressor("qsgd:4>>secagg")
+    # the privacy stages wrap the pipeline to their left, as in the
+    # reference (their rules: tests/test_torch_privacy.py)
+    for spec in ("dpnoise:0.5", "qsgd:4>>secagg"):
+        assert make_compressor(spec).name == make_jax(spec).name
     with pytest.raises(KeyError):
         make_compressor("nosuchstage:3")
     # the global packed wire degrades gracefully on qsgd:8, like the reference

@@ -6,10 +6,12 @@ the reference's draws injected through :class:`JaxKey`.
     bit-exact against the reference's, compiled one rounding per op
     (:func:`ieee_jit`).
   * One round of ``make_sim_step`` from the reference's init against the
-    reference's round (``ieee_jit``) for EF ``stc`` (0.01) + ``lfl8`` and
-    EF ``stc:0.1@fused``: loss and params within rtol 1e-5 (mu is a sum in
-    another order, and the local update's matmuls round differently), the
-    ledger exact.  An EF residual is an unsent delta, ``p_local - p`` in
+    reference's round for EF ``stc`` (0.01) + ``lfl8`` and EF
+    ``stc:0.1@fused``: the hops around the local update compiled with
+    ``ieee_jit``, the local update (the same for both rounds) compiled
+    once at optimization level 0.  Loss and params within rtol 1e-5 (mu
+    is a sum in another order, and the local update's matmuls round
+    differently), the ledger exact.  An EF residual is an unsent delta, ``p_local - p`` in
     f32: a one-ULP difference in a local step of a parameter near 1 (the
     norm gains) moves it by 1.2e-7 per step, so residuals are held at rtol
     1e-4 and atol 2.5e-7 (two local steps), or 1e-5 of the leaf's scale
@@ -34,7 +36,7 @@ from repro_torch.core.simulate import make_sim_step
 from repro_torch.launch import train
 from repro_torch.models.model import Model
 from test_torch_engine import C, SEQ, _batches, _fl, _port_batch, \
-    _port_state, _same_ledger, _tree_np
+    _port_state, _same_ledger, _tree_np, local_update_j
 from test_torch_jaxkeys import JaxKey, ieee_jit
 
 ROUNDS = {"stc_lfl8": dict(spec="stc", downlink_compressor="lfl8",
@@ -68,6 +70,29 @@ def test_downlink_hop_bitexact_and_ledger_terms():
     assert changed >= 8          # the constant norm gains quantize exactly
 
 
+def _round_j(engine, state, batch):
+    """The reference's round program: the hops before and after the local
+    update each as one :func:`ieee_jit` program, the local update
+    test_torch_engine.py's :func:`local_update_j` (optimization level 0,
+    compiled once: like the port's own, its deltas round their matmuls
+    differently from an ``ieee_jit`` round, which the tolerances below
+    already take)."""
+    hops = engine.program.hops
+    i = [n for n, _ in hops].index("local_update")
+
+    def run(part, ctx):
+        for _, fn in part:
+            ctx = fn(ctx)
+        return ctx
+    ctx = ieee_jit(lambda st, b: run(hops[:i], {"state": st, "batch": b}))(
+        state, batch)
+    deltas, losses, first = local_update_j()(ctx["params"],
+                                             ctx["model_batch"], ctx["rng"])
+    ctx.update(deltas=deltas, losses=losses, first_losses=first, new_ci=None)
+    ctx = ieee_jit(lambda c: run(hops[i + 1:], c))(ctx)
+    return ctx["new_state"], ctx["metrics"]
+
+
 @pytest.mark.parametrize("case", sorted(ROUNDS))
 def test_stc_round_matches_reference_engine(case):
     kw = dict(ROUNDS[case])
@@ -80,8 +105,8 @@ def test_stc_round_matches_reference_engine(case):
     st_j = sim_j.init_fn(jax.random.PRNGKey(0))
     st_t = _port_state(sim_t, st_j)
     b = _batches()[0]
-    st_j, m_j = ieee_jit(sim_j.engine.round_fn)(
-        st_j, {k: jnp.asarray(v) for k, v in b.items()})
+    st_j, m_j = _round_j(sim_j.engine, st_j,
+                         {k: jnp.asarray(v) for k, v in b.items()})
     st_t, m_t = sim_t.step_fn(st_t, _port_batch(b))
     np.testing.assert_allclose(float(m_t["loss"]), float(m_j["loss"]),
                                rtol=1e-5)

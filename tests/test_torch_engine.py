@@ -54,6 +54,18 @@ SPECS = ["topk:0.05>>qsgd:8", "topk:0.05>>qsgd:4@fused"]
 C, SEQ, B = 2, 16, 2
 
 
+@functools.lru_cache(maxsize=None)
+def local_update_j():
+    """The reference's local update (paper_lm, C clients, E = 2, lr 0.2),
+    compiled once at optimization level 0: the wire round below and
+    test_torch_downlink.py's STC rounds share it."""
+    mj = ModelJax(get_arch_jax("paper_lm"))
+    flj = _fl(SPECS[0], False)
+    _, up, down = EJ.ledger_terms(mj, flj)
+    return quick_jit(EJ.make_dispatch(mj, flj, up, down, C, SEQ)
+                     .local_update)
+
+
 def _fl(spec, port, **kw):
     kw = dict(dict(uplink_compressor=spec, local_steps=2, local_lr=0.2), **kw)
     return (FLConfig(backend="kernel", **kw) if port
@@ -103,7 +115,7 @@ def test_wire_round_bitexact_against_reference(spec):
     disp_t = ET.make_dispatch(mt, flt, up_t, down_t, C, SEQ)
     # the deltas feed both wires: their bits are not compared, so the
     # local update compiles at optimization level 0
-    local = quick_jit(disp_j.local_update)
+    local = local_update_j()
     wire_j = ieee_jit(disp_j.wire_rows)
     agg_rows_j = ieee_jit(disp_j.aggregate_rows)
     apply_j = ieee_jit(functools.partial(SJ.apply, flj))

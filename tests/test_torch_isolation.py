@@ -53,20 +53,32 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_knobs_raise_naming_the_reference_module():
+    import dataclasses
+
     from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import Topology, make_round_engine
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
-    for kw, module in ((dict(scenario_epoch_scale=0.5),
-                        "repro.core.scenario"),
-                       (dict(dp_sigma=1.0), "repro.compress.secure_agg"),
-                       (dict(telemetry=True), "repro.obs.telemetry"),
-                       (dict(secure_agg=True), "repro.compress.secure_agg"),
-                       (dict(scenario_dropout=0.1), "repro.core.scenario")):
+    fl = FLConfig(uplink_compressor="qsgd:8")
+    for call, module in (
+            (lambda: make_sim_step(model, dataclasses.replace(
+                fl, telemetry=True), 2, device="cpu"),
+             "repro.obs.telemetry"),
+            (lambda: make_round_engine(model, fl, Topology(kind="star",
+                                                           n_clients=2),
+                                       device="cpu"), "repro.core.engine"),
+            (lambda: get_arch("deepseek_67b"),
+             "repro.configs.deepseek_67b"),
+            (lambda: Model(dataclasses.replace(get_arch("paper_lm"),
+                                               qkv_bias=True)),
+             "repro.models.layers"),
+            (lambda: make_round_engine(model, fl, Topology(kind="gossip",
+                                                           n_clients=2),
+                                       device="cpu"), "repro.core.engine")):
         with pytest.raises(NotImplementedError, match=module):
-            make_sim_step(model, FLConfig(uplink_compressor="qsgd:8", **kw),
-                          2, device="cpu")
+            call()
     with pytest.raises(NotImplementedError, match="repro.configs"):
         get_arch("mamba2_370m")
 

@@ -2,7 +2,7 @@
 
 ``repro_torch`` threads keys with the reference's structure (split per
 round and per client, ``fold_in`` per leaf and per chain stage) but draws
-its own uniforms.  :class:`JaxKey` has the port key's six methods and
+its own uniforms.  :class:`JaxKey` has the port key's seven methods and
 answers them with ``jax.random``, so a port run handed a ``JaxKey`` draws
 exactly the reference's QSGD uniforms (and UVeQ's dither, RandMask's
 scores and noise, and a population's cohorts and availability) — the key
@@ -57,6 +57,10 @@ class JaxKey:
         v = np.asarray(_permutation(self.key, n))
         return torch.from_numpy(v.astype(np.int64)).to(device)
 
+    def bits(self, shape, width, device):
+        v = np.asarray(_bits(self.key, tuple(shape), int(width)))
+        return torch.from_numpy(v.astype(np.int64)).to(device)
+
 
 # compiled once per shape (eager jax.random re-dispatches every
 # primitive).  ``uniform`` is integer hashing, then exact float ops (an OR into the
@@ -69,6 +73,11 @@ _randint = jax.jit(lambda k, shape, lo, hi: jax.random.randint(k, shape, lo,
                                                                hi),
                    static_argnums=1)
 _permutation = jax.jit(jax.random.permutation, static_argnums=1)
+# integer hashing only: the same bits at any optimization level
+_bits = jax.jit(lambda k, shape, w: jax.random.bits(k, shape,
+                                                    jnp.dtype(f"uint{w}")),
+                static_argnums=(1, 2),
+                compiler_options={"xla_backend_optimization_level": 0})
 
 
 IEEE_OPTIONS = {"xla_backend_optimization_level": 0,
