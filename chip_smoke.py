@@ -157,12 +157,35 @@ line is printed):
      slots, K = 8, ``heavy_tail``, 24 events) with the deadline tracking
      the 0.5 completion quantile and dropout 0.2, printing its flush
      times and ``q_est``;
-  12. the ``kernels`` JSON line: launch counts are those of the main-path
+  12. slice 9's flight recorder on paper_lm, each configuration run with
+     ``FLConfig.telemetry`` on and off on both backends: the dense sim (8
+     clients, 3 rounds, EF ``topk:0.05>>qsgd:4@fused``, a square trace at
+     duty 0.5, dropout 0.3, epoch scale 0.5 at E=4), 6b's population
+     under ``drop`` and ``sketch`` (3 rounds), phase 9's FedBuff K = 4
+     ``heavy_tail`` run and its population leg over 100,000 clients (32
+     events each) and ``qsgd:4>>secagg``.  On against off, every tensor
+     but the telemetry is bit-identical; the stage slots, summed one
+     after another in f32, equal the ledger's wire totals every round;
+     the store counters equal the hits, misses, evictions and recoveries
+     the slots show; the backends' ``RoundStats`` are bit-identical.
+     Then ``repro_torch.launch.train.main`` with ``--trace``,
+     ``--profile-dir`` and ``--checkpoint`` on the sim, population and
+     async paths: each trace validates, the report renders the sections
+     the path feeds, the profile directory holds a trace and the
+     checkpoint restores bit-equal; the sim run's wall time traced and
+     untraced is printed, for information;
+  12b. llama3_2_1b at full width and depth, 2 clients, 2 rounds of EF
+     ``topk:0.05>>qsgd:4@fused`` through the kernels with telemetry on and
+     off: bit-identical (the first run's tensors kept on the host), the
+     slots summing to the ledger, the peak memory under 76 GiB, and the
+     bf16 checkpoint (2.47 GB) saved, restored bit-equal and deleted, its
+     seconds printed beside the card's name and power limit;
+  13. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
-     10b, 11), each counted from 0 just before its phase (the count
-     sketch's by path too, each of which must launch); the pack and unpack
-     kernels are on no path and count their phase-3 calls;
-  13. last line: ``{"ok": true, "device": {...}}``.
+     10b, 11, 12, 12b), each counted from 0 just before its phase (the
+     count sketch's by path too, each of which must launch); the pack and
+     unpack kernels are on no path and count their phase-3 calls;
+  14. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -338,6 +361,9 @@ SCN_POP = dict(n_clients=100_000, cohort=16, capacity=64, sampler="stride",
                availability=0.5)
 SCN_ASYNC_TOPO = dict(buffer_size=8, latency_profile="heavy_tail")
 SCN_ASYNC_EVENTS = 24
+# slice 9's flight recorder: phase 6b's population at fewer rounds (round 1
+# already evicts)
+TELE_POP_ROUNDS = 3
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -2569,6 +2595,392 @@ def scenario_phase(dev):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 12-12b: the flight recorder and checkpoints
+# ---------------------------------------------------------------------------
+
+def tele_run(model, fl_kw, backend, tele, dev, rounds, clients=None,
+             pop=None, topo_kw=None, seq=PAPER_LM_SEQ, batch=PAPER_LM_BATCH,
+             local_steps=2, heterogeneity=1.5):
+    """``rounds`` rounds (server events when ``topo_kw`` is given) of
+    ``make_round_engine`` with ``FLConfig.telemetry`` = ``tele``: the sim
+    over ``clients`` or a population ``pop``, or the async engine.  Each
+    round's record holds its wall time (host clock, synchronised) and,
+    with a store, the resident clients before and after it and the ids it
+    touched (the cohort, or the arriving client).  Returns (engine, state,
+    stacked metrics, records)."""
+    from repro_torch.core.engine import Topology, make_round_engine, \
+        stack_rows
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.pipeline import cohort_data_fn
+    from repro_torch.data.synthetic import FedDataConfig, sample_round
+
+    fl = FLConfig(backend=backend, local_steps=local_steps, local_lr=0.2,
+                  telemetry=tele, **fl_kw)
+    N = pop.n_clients if pop is not None else clients
+    data = FedDataConfig(vocab_size=model.cfg.vocab_size, num_clients=N,
+                         seq_len=seq, batch_per_client=batch,
+                         heterogeneity=heterogeneity)
+    data_fn = (cohort_data_fn(pop, data, dev) if pop is not None
+               else lambda r: sample_round(data, r, dev))
+    topo = (Topology.async_(N, **topo_kw) if topo_kw is not None
+            else Topology.sim(N))
+    engine = make_round_engine(model, fl, topo, chunk=seq, device=dev,
+                               data_fn=data_fn, population=pop)
+    state = engine.init_fn(0)
+    store = engine.aux.get("store")
+    rows, recs = [], []
+    for _ in range(rounds):
+        rec = {}
+        batch_r = None if topo_kw is not None else data_fn(state.round)
+        if store is not None:
+            rec["before"] = state.comm_state["client"].tolist()
+            if topo_kw is None:
+                rec["ids"] = batch_r["ids"].tolist()
+            else:
+                A = state.async_state
+                c = int(torch.argmin(A["next_done"]))
+                rec["ids"] = [int(A["slot_client"][c])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = engine.round_fn(state, batch_r)
+        torch.cuda.synchronize()
+        rec["secs"] = time.perf_counter() - t0
+        if store is not None:
+            rec["after"] = state.comm_state["client"].tolist()
+        rows.append(m)
+        recs.append(rec)
+    return engine, state, stack_rows(rows), recs
+
+
+def tele_tensors(state, ms):
+    """Every tensor a run computes but the telemetry: params, server
+    moments, pipeline or store state, async state, the metrics and the
+    ledger."""
+    return (_tensors(state.params) + _tensors(state.server_opt_state)
+            + _tensors(state.comm_state) + _tensors(state.async_state)
+            + [ms[k] for k in sorted(ms) if k not in ("ledger",
+                                                      "round_stats")]
+            + list(ms["ledger"].fields().values()))
+
+
+def stats_cpu(rs):
+    return {f: v.cpu() for f, v in rs.fields().items()}
+
+
+def check_slots(rs, ledger, what):
+    """Every round's stage slots, summed one after another in f32, equal
+    the ledger's wire totals."""
+    for slots, total in (("up_stage_bytes", ledger.uplink_wire),
+                         ("down_stage_bytes", ledger.downlink_wire)):
+        s, t = getattr(rs, slots).cpu(), total.cpu()
+        for r in range(t.shape[0]):
+            acc = torch.zeros((), dtype=torch.float32)
+            for v in s[r]:
+                acc = acc + v
+            if not torch.equal(acc, t[r]):
+                fail(f"{what} round {r}: {slots} sum to {float(acc)!r}, "
+                     f"the ledger bills {float(t[r])!r}")
+
+
+def check_store_counters(rs, recs, eviction, what):
+    """The counters equal what the resident clients before and after each
+    round show: hits (ids already resident), misses, evictions (residents
+    that left) and, under ``sketch``, every miss recovered."""
+    rs = stats_cpu(rs)
+    for r, rec in enumerate(recs):
+        before = set(rec["before"]) - {-1}
+        after = set(rec["after"]) - {-1}
+        hits = len(set(rec["ids"]) & before)
+        miss = len(rec["ids"]) - hits
+        want = {"store_hits": hits, "store_misses": miss,
+                "store_evictions": len(before - after),
+                "store_sketch_recovered": miss if eviction == "sketch"
+                else 0}
+        got = {k: float(rs[k][r]) for k in want}
+        if got != {k: float(v) for k, v in want.items()}:
+            fail(f"{what} round {r}: counters {got} != the slots' {want}")
+
+
+def tele_summary(rs):
+    rs = stats_cpu(rs)
+    return (f"up slots round 0 {fmt(rs['up_stage_bytes'][0])}, down "
+            f"{fmt(rs['down_stage_bytes'][0])}; selected "
+            f"{fmt(rs['selected'])}, available {fmt(rs['available'])}, "
+            f"dropped {fmt(rs['dropped'])}, staleness histogram "
+            f"{fmt(rs['staleness_hist'].sum(0))}, epoch-scale histogram "
+            f"{fmt(rs['epoch_scale_hist'].sum(0))}, store hits/misses/"
+            f"evictions/recovered "
+            f"{[int(rs[k].sum()) for k in ('store_hits', 'store_misses',
+                                          'store_evictions',
+                                          'store_sketch_recovered')]}")
+
+
+def telemetry_phase(dev):
+    """Slice 9's flight recorder on paper_lm: each configuration with
+    telemetry on and off on both backends, bit-identical but for the
+    telemetry; the stage slots summing to the ledger; the store counters
+    against the slots; the backends' RoundStats bit-identical; then the
+    CLI's --trace, --profile-dir and --checkpoint on the sim, population
+    and async paths."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    N, M, S, _ = EVICT_POP
+    async_topo = dict(ASYNC_RUNS[0][1])
+    configs = (
+        ("dense square 0.5 + dropout 0.3 + epoch scale 0.5 E=4, EF "
+         + CHAINS[1], dict(uplink_compressor=CHAINS[1],
+                           scenario_trace="square",
+                           scenario_availability=0.5, scenario_period=6.0,
+                           scenario_dropout=0.3, scenario_epoch_scale=0.5,
+                           scenario_seed=1),
+         dict(clients=PAPER_LM_CLIENTS, rounds=PAPER_LM_ROUNDS,
+              local_steps=4),
+         ("threshold_sparsify", "qsgd_quantize", "qsgd_pack"), None),
+        ("population drop", dict(uplink_compressor=POP_SPEC),
+         dict(pop=dict(n_clients=N, cohort=M, capacity=S, eviction="drop"),
+              rounds=TELE_POP_ROUNDS, local_steps=1, heterogeneity=2.0),
+         ("threshold_sparsify", "qsgd_quantize"), "drop"),
+        ("population sketch", dict(uplink_compressor=POP_SPEC),
+         dict(pop=dict(n_clients=N, cohort=M, capacity=S,
+                       eviction="sketch"),
+              rounds=TELE_POP_ROUNDS, local_steps=1, heterogeneity=2.0),
+         ("threshold_sparsify", "qsgd_quantize"), "sketch"),
+        ("async " + ASYNC_RUNS[0][0],
+         dict(ASYNC_FL, **ASYNC_RUNS[0][2]),
+         dict(clients=ASYNC_SLOTS, topo_kw=async_topo, rounds=ASYNC_EVENTS,
+              seq=ASYNC_SEQ, batch=ASYNC_BATCH, heterogeneity=2.0),
+         ("threshold_sparsify", "qsgd_quantize"), None),
+        (f"async population {ASYNC_POP['n_clients']:,} K={ASYNC_POP_K}",
+         dict(ASYNC_FL), dict(pop=ASYNC_POP,
+                              topo_kw=dict(buffer_size=ASYNC_POP_K,
+                                           latency_profile="heavy_tail"),
+                              rounds=ASYNC_EVENTS, seq=ASYNC_SEQ,
+                              batch=ASYNC_BATCH, heterogeneity=2.0),
+         ("threshold_sparsify", "qsgd_quantize"), "drop"),
+        ("dense qsgd:4>>secagg", dict(uplink_compressor="qsgd:4>>secagg"),
+         dict(clients=PAPER_LM_CLIENTS, rounds=PAPER_LM_ROUNDS),
+         ("qsgd_quantize",), None),
+    )
+    print(f"paper_lm telemetry: {len(configs)} configurations, each with "
+          f"telemetry on and off on both backends", flush=True)
+    for label, fl_kw, run_kw, kernels, eviction in configs:
+        out = {}
+        for backend in ("kernel", "jax"):
+            for tele in (False, True):
+                kw = dict(run_kw)
+                if "pop" in kw:
+                    kw["pop"] = ClientPopulation(**kw["pop"])
+                what = (f"paper_lm telemetry {label} backend={backend} "
+                        f"telemetry={'on' if tele else 'off'}")
+                before = launch_counts()
+                engine, state, ms, recs = tele_run(model, fl_kw, backend,
+                                                   tele, dev, **kw)
+                ran = {k: v - before[k] for k, v in launch_counts().items()}
+                check_launches(ran, kernels if backend == "kernel" else (),
+                               what)
+                check_finite(ms, state, what)
+                if tele:
+                    rs = ms["round_stats"]
+                    check_slots(rs, ms["ledger"], what)
+                    if eviction is not None:
+                        check_store_counters(rs, recs, eviction, what)
+                elif "round_stats" in ms:
+                    fail(f"{what}: round_stats without telemetry")
+                out[backend, tele] = (state, ms, recs, engine)
+            (s0, m0, r0, _), (s1, m1, r1, e1) = out[backend, False], \
+                out[backend, True]
+            n = check_pairs(tele_tensors(s0, m0), tele_tensors(s1, m1),
+                            f"paper_lm telemetry {label} backend={backend}:"
+                            f" on vs off")
+            secs = [sum(r["secs"] for r in rr) for rr in (r0, r1)]
+            print(f"paper_lm telemetry {label} backend={backend}: on == off "
+                  f"bit for bit ({n} tensors); slots sum to the ledger "
+                  f"every round"
+                  + (", counters == slots" if eviction is not None else "")
+                  + f"; {len(r1)} rounds in {secs[0]:.3f} s off, "
+                  f"{secs[1]:.3f} s on ({100 * (secs[1] / secs[0] - 1):+.1f}"
+                  f"%); slots {list(e1.aux['telemetry'].up_names)} / "
+                  f"{list(e1.aux['telemetry'].down_names)}", flush=True)
+        a = list(stats_cpu(out["kernel", True][1]["round_stats"]).values())
+        b = list(stats_cpu(out["jax", True][1]["round_stats"]).values())
+        m = check_pairs(a, b, f"paper_lm telemetry {label}: backends' "
+                        f"RoundStats")
+        print(f"paper_lm telemetry {label}: backends' RoundStats "
+              f"bit-identical ({m} fields); "
+              f"{tele_summary(out['kernel', True][1]['round_stats'])}",
+              flush=True)
+        del out
+    cli_phase(dev)
+
+
+def scratch_dir(prefix):
+    """A new directory under the checkout's ``build/`` (which git ignores)
+    for a phase's files; the phase deletes it."""
+    import tempfile
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=base)
+
+
+def cli_phase(dev):
+    """``repro_torch.launch.train.main`` with --trace, --profile-dir and
+    --checkpoint on the sim, population and async paths (the kernel
+    backend): each trace validates, the report renders every section
+    the run feeds, the profile directory holds a trace and the
+    checkpoint restores bit-equal; then the sim run untraced, for its
+    wall time."""
+    import shutil
+
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.obs import report
+    from repro_torch.obs.trace import validate_file
+
+    base = ["--device", dev.type, "--backend", "kernel", "--compressor",
+            POP_SPEC, "--seq", "16", "--batch-per-client", "1",
+            "--local-steps", "1"]
+    paths = (
+        ("sim", ["--clients", "4", "--rounds", "4", "--eval-every", "2"],
+         ("uplink byte waterfall", "time breakdown", "eval_loss",
+          "claims-ready rows")),
+        ("population", ["--population", "100000", "--cohort", "4",
+                        "--store-capacity", "6", "--eviction", "sketch",
+                        "--rounds", "3"],
+         ("uplink byte waterfall", "residual store", "time breakdown",
+          "claims-ready rows")),
+        ("async", ["--async", "--clients", "4", "--buffer-size", "2",
+                   "--rounds", "6"],
+         ("uplink byte waterfall", "staleness histogram", "buffer flushes",
+          "time breakdown", "claims-ready rows")),
+    )
+    tmp = scratch_dir("phase12-")
+    try:
+        for name, argv, sections in paths:
+            trace = os.path.join(tmp, f"{name}.jsonl")
+            prof = os.path.join(tmp, f"{name}-profile")
+            ckpt = os.path.join(tmp, f"{name}.npz")
+            t0 = time.perf_counter()
+            state, ms = train.main(base + argv + [
+                "--trace", trace, "--profile-dir", prof, "--checkpoint",
+                ckpt])
+            secs = time.perf_counter() - t0
+            recs = validate_file(trace)
+            kinds = [r["kind"] for r in recs]
+            if kinds.count("round") != int(argv[argv.index("--rounds")
+                                                + 1]):
+                fail(f"cli {name}: {kinds.count('round')} round records")
+            if kinds.count("stages") != 1 or "checkpoint" not in kinds:
+                fail(f"cli {name}: records {sorted(set(kinds))}")
+            text = report.render(report.summarize(recs))
+            missing = [s for s in sections if s not in text]
+            if missing:
+                fail(f"cli {name}: the report lacks {missing}:\n{text}")
+            traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+            if not traces:
+                fail(f"cli {name}: no profiler trace in {prof}")
+            back = checkpoint.restore(ckpt, state.params)
+            for n, p in state.params.items():
+                if not torch.equal(back[n], p):
+                    fail(f"cli {name}: checkpoint leaf {n} differs")
+            counts = {k: kinds.count(k) for k in sorted(set(kinds))}
+            mb = os.path.getsize(os.path.join(prof, traces[0])) / 1e6
+            print(f"cli {name}: {len(recs)} records {counts}, valid; the "
+                  f"report renders {list(sections)}; profiler trace "
+                  f"{traces[0]} ({mb:.1f} MB); checkpoint restores "
+                  f"bit-equal ({len(back)} leaves); {secs:.2f}s with the "
+                  f"profiler", flush=True)
+        for traced in (True, False):
+            argv = base + list(paths[0][1])
+            if traced:
+                argv += ["--trace", os.path.join(tmp, "timed.jsonl")]
+            t0 = time.perf_counter()
+            train.main(argv)
+            torch.cuda.synchronize()
+            print(f"cli sim {'traced' if traced else 'untraced'}: "
+                  f"{time.perf_counter() - t0:.3f}s wall on {card_line()}",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def llama_telemetry_phase(dev):
+    """llama3_2_1b at full width and depth, 2 clients, 2 rounds of EF
+    topk+qsgd:4@fused through the kernels: telemetry on against off bit
+    for bit, the slots summing to the ledger, the bf16 checkpoint saved,
+    restored bit-equal and deleted, the peak memory under 76 GiB."""
+    import shutil
+
+    from repro_torch import checkpoint
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    model = Model(cfg)
+    fl_kw = dict(uplink_compressor=CHAINS[1])
+    print(f"llama3_2_1b telemetry: {model.param_count():,} params, "
+          f"{cfg.num_layers} layers (no depth cut), {LLAMA_CLIENTS} clients, "
+          f"seq {LLAMA_SEQ}, batch {LLAMA_BATCH}, E=1, {LLAMA_ROUNDS} rounds "
+          f"of {fl_kw} backend=kernel", flush=True)
+    out, peaks = {}, {}
+    for tele in (False, True):
+        what = f"llama3_2_1b telemetry={'on' if tele else 'off'}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = launch_counts()
+        engine, state, ms, recs = tele_run(
+            model, fl_kw, "kernel", tele, dev, LLAMA_ROUNDS,
+            clients=LLAMA_CLIENTS, seq=LLAMA_SEQ, batch=LLAMA_BATCH,
+            local_steps=1)
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        check_launches(ran, ("threshold_sparsify", "qsgd_pack"), what)
+        check_finite(ms, state, what)
+        check_ledger(engine, ms, LLAMA_CLIENTS, what)
+        if tele:
+            check_slots(ms["round_stats"], ms["ledger"], what)
+        peaks[tele] = torch.cuda.max_memory_allocated(dev) / 2**30
+        if peaks[tele] >= LLAMA_PEAK_GIB:
+            fail(f"{what}: peak memory {peaks[tele]:.1f} GiB, not under "
+                 f"{LLAMA_PEAK_GIB} GiB")
+        print(f"{what}: loss per round {fmt(ms['loss'])}, round times "
+              f"{fmt(r['secs'] for r in recs)} s; launches "
+              f"{ran}; peak memory {peaks[tele]:.2f} GiB (limit "
+              f"{LLAMA_PEAK_GIB:.0f}) on {card_line()}", flush=True)
+        # on the host, so that the next run's peak is its own
+        out[tele] = [t.cpu() for t in tele_tensors(state, ms)]
+        if not tele:
+            del engine, state, ms
+            torch.cuda.empty_cache()
+    n = check_pairs(out[False], out[True], "llama3_2_1b telemetry: on vs off")
+    del out
+    print(f"llama3_2_1b telemetry: on == off bit for bit ({n} tensors); "
+          f"{tele_summary(ms['round_stats'])}", flush=True)
+    tmp = scratch_dir("phase12b-")
+    try:
+        path = os.path.join(tmp, "llama.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, state.params)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = checkpoint.restore(path, state.params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for name, p in state.params.items():
+            if back[name].dtype != p.dtype or not torch.equal(back[name], p):
+                fail(f"llama3_2_1b checkpoint: leaf {name} differs")
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"llama3_2_1b checkpoint: {size / 1e9:.3f} GB ({cfg.dtype}) saved "
+          f"in {save_s:.2f}s, restored bit-equal onto the card in "
+          f"{restore_s:.2f}s, deleted; on {card_line()}", flush=True)
+    del engine, state, ms
+    torch.cuda.empty_cache()
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -2692,7 +3104,8 @@ def main():
                   lambda d: llama_algorithm_phase(d, "7b"),
                   lambda d: llama_algorithm_phase(d, "7c"),
                   selection_phase, async_phase, llama_async_phase,
-                  privacy_phase, llama_privacy_phase, scenario_phase):
+                  privacy_phase, llama_privacy_phase, scenario_phase,
+                  telemetry_phase, llama_telemetry_phase):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -4,7 +4,8 @@
 i's ``payload[carrier_key]`` is re-encoded by stage i+1, and stage i gets
 the key ``rng.fold_in(i)``.  ``ErrorFeedback`` wraps a pipeline with the
 EF-SGD residual, ``MomentumCorrection`` with DGC's momentum correction and
-its warm-up sparsity schedule.
+its warm-up sparsity schedule.  ``stage_sequence`` and
+``stage_input_lens`` give the flight recorder its per-stage byte axis.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch.compress.api import CommTransform, Identity, zeros_state
 from repro_torch.device import resolve_device
 
 __all__ = ["Chain", "chain", "ErrorFeedback", "error_feedback",
-           "MomentumCorrection", "momentum_correction"]
+           "MomentumCorrection", "momentum_correction", "stage_sequence",
+           "stage_input_lens"]
 
 
 class Chain(CommTransform):
@@ -94,6 +96,27 @@ class Chain(CommTransform):
             total += s.meta_entropy_bits_given(m, hint)
             hint = s.carrier_hint(m)
         return total
+
+
+def stage_sequence(pipe: CommTransform) -> Tuple[CommTransform, ...]:
+    """The carrier stage sequence under any wrappers: the flight
+    recorder's per-stage attribution axis (:mod:`repro_torch.obs
+    .telemetry`).  The wrappers (EF, DGC momentum, SecAgg, DPNoise) bill
+    through ``.inner`` and carry nothing of their own, so unwrapping them
+    and decomposing the innermost chain reproduces the wrapped pipeline's
+    ``wire_bits``."""
+    while hasattr(pipe, "inner"):
+        pipe = pipe.inner
+    return tuple(pipe.stages) if isinstance(pipe, Chain) else (pipe,)
+
+
+def stage_input_lens(stages, n):
+    """Input length each stage of a carrier sequence sees for an n-length
+    leaf: ``n``, then the preceding carrier lengths (``Chain._lens``)."""
+    ms = [n]
+    for s in stages[:-1]:
+        ms.append(s.carrier_len(ms[-1]))
+    return ms
 
 
 def chain(*transforms: CommTransform) -> CommTransform:

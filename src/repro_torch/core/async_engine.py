@@ -23,7 +23,12 @@ the server consumes completions in virtual-time order.  One round of
                re-dispatches the flushed slots on the new model;
     ledger   — one upload per event, the downlink paid per re-dispatched
                slot at a flush, and the virtual time (and one round of
-               zCDP spend per event under ``dpnoise``).
+               zCDP spend per event under ``dpnoise``);
+    [telemetry] — with ``FLConfig.telemetry``, the event's ``RoundStats``
+               (:mod:`repro_torch.obs.telemetry`): one upload, the
+               downlink per re-dispatched slot, the staleness as a one-hot
+               histogram, the buffer fill after the arrival and, over a
+               population, the arriving client's store outcome.
 
 The scenario's client dynamics (:mod:`repro_torch.core.scenario`) apply
 here as in the reference: mid-round dropout is one survival draw per
@@ -67,6 +72,7 @@ from repro_torch.core.rng import PRNGKey
 from repro_torch.core.types import CommLedger, FLConfig, FLState
 from repro_torch.data.pipeline import LATENCY_PROFILES, device_latency
 from repro_torch.models.model import Model
+from repro_torch.obs import telemetry as obs_tel
 
 _ALGORITHMS = ("fedavg", "fedsgd", "fedprox")
 
@@ -155,6 +161,7 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
     M = population.cohort if population is not None else C
     K, alpha, profile, deadline = _async_knobs(fl, topo, n_slots=M)
     terms, up, down = eng.ledger_terms(model, fl)
+    tele = eng._telemetry_spec(fl, up, down, model.param_sizes())
     stateful = up.stateful
     store = (population.make_store(up, model.defs, device)
              if population is not None else None)
@@ -239,8 +246,10 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
             # in-flight duration; a dropped upload still arrives (shapes
             # never change) but with zero aggregation weight
             cid = int(A["slot_client"][c]) if population is not None else c
-            w_in = w_in * scn.survival_draw(scenario, st.round, cid,
-                                            A["slot_lat"][c])
+            survive = scn.survival_draw(scenario, st.round, cid,
+                                        A["slot_lat"][c])
+            ctx["scn_dropped"] = 1.0 - survive
+            w_in = w_in * survive
         if adaptive:
             # one Robbins-Monro step per observed arrival duration
             A["q_est"] = scn.quantile_update(A["q_est"], A["slot_lat"][c],
@@ -371,6 +380,25 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
             dp_rho=_f32(terms["dp_rho"]) if terms.get("dp_rho") else None)
         return ctx
 
+    def hop_telemetry(ctx):
+        # the flight recorder, per event: one upload (up_unit 1 against
+        # the absolute per-event ledger), the downlink per re-dispatched
+        # slot, the staleness as a one-hot histogram, the post-arrival
+        # fill and the arriving client's store outcome; reads values the
+        # event already computed and writes none
+        st = ctx["state"]
+        ctrs = None
+        if store is not None:
+            ctrs = store.stats(
+                st.comm_state,
+                st.async_state["slot_client"][ctx["c"]:ctx["c"] + 1])
+        ctx["round_stats"] = obs_tel.round_stats(
+            tele, ctx["ledger"], up_unit=1.0, down_unit=ctx["n_down"],
+            staleness=ctx["tau"], fill=ctx["fill"], store=ctrs,
+            selected=1.0, available=float(M),
+            dropped=ctx.get("scn_dropped"))
+        return ctx
+
     def hop_finalize(ctx):
         st = ctx["state"]
         ctx["metrics"] = {
@@ -384,20 +412,27 @@ def build_async_engine(model: Model, fl: FLConfig, topo, data_fn,
         }
         if adaptive:
             ctx["metrics"]["q_est"] = ctx["A"]["q_est"]
+        if tele is not None:
+            ctx["metrics"]["round_stats"] = ctx["round_stats"]
         ctx["new_state"] = FLState(
             params=ctx["new_params"], server_opt_state=ctx["new_sos"],
             control=None, client_controls=None, comm_state=ctx["new_comm"],
             rng=ctx["new_rng"], round=st.round + 1, async_state=ctx["A"])
         return ctx
 
-    program = eng.RoundProgram(hops=(
-        ("pop", hop_pop), ("arrive", hop_arrive), ("flush", hop_flush),
-        ("ledger", hop_ledger), ("finalize", hop_finalize)))
+    hops = [("pop", hop_pop), ("arrive", hop_arrive), ("flush", hop_flush),
+            ("ledger", hop_ledger)]
+    if tele is not None:
+        hops.append(("telemetry", hop_telemetry))
+    hops.append(("finalize", hop_finalize))
+    program = eng.RoundProgram(hops=tuple(hops))
     aux = {"buffer_size": K, "staleness_alpha": alpha,
            "latency_profile": profile, "flush_deadline": deadline,
            "events_per_generation": K, "dispatch": dispatch}
     if population is not None:
         aux.update(population=population, cohort=M, store=store)
+    if tele is not None:
+        aux["telemetry"] = tele
     return eng.RoundEngine(
         topology=topo, round_fn=program, init_fn=init_fn,
         state_from_params=state_from_params, n_clients=C, terms=terms,

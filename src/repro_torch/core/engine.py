@@ -6,14 +6,16 @@ plain dict context, as in the reference (the ``sim`` topology):
 
     rng -> [cohort] -> downlink -> [dane_gradient] -> local_update
         -> select -> [scenario_dropout] -> [cmfl] -> wire -> [control]
-        -> server_opt -> ledger -> finalize
+        -> server_opt -> ledger -> [telemetry] -> finalize
 
 built on the shared dispatch body (:func:`make_dispatch`: ``downlink``,
 ``local_update`` / ``client_updates``, ``global_gradient``,
 ``wire_rows``, ``aggregate_rows``).  The bracketed hops are there only
 when their feature is on: a population's cohort, FedDANE's gradient
-round, the scenario's mid-round dropout, CMFL's relevance filter and
-SCAFFOLD's control variates.  The reference's
+round, the scenario's mid-round dropout, CMFL's relevance filter,
+SCAFFOLD's control variates and the flight recorder's ``RoundStats``
+(``FLConfig.telemetry``: :mod:`repro_torch.obs.telemetry`, a hop that
+reads the round's values and writes none).  The reference's
 ``vmap`` over clients is a Python loop over the client dim here, and its
 ``lax.scan`` over rounds is the Python loop of :func:`run_rounds`.
 
@@ -65,6 +67,7 @@ from repro_torch.data.pipeline import capability_latency
 from repro_torch.device import not_ported, resolve_device
 from repro_torch.models.layers import scalar_like
 from repro_torch.models.model import Model
+from repro_torch.obs import telemetry as obs_tel
 
 _ALGORITHMS = ("fedavg", "fedsgd", "fedprox", "scaffold", "feddane")
 
@@ -141,8 +144,6 @@ def check_fl(fl: FLConfig) -> None:
     """Reject the reference's knobs this slice does not run."""
     if fl.algorithm not in _ALGORITHMS:
         raise not_ported(f"algorithm={fl.algorithm!r}", "repro.core.engine")
-    if fl.telemetry:
-        raise not_ported("telemetry", "repro.obs.telemetry")
 
 
 def _make_uplink(fl: FLConfig, fraction: float):
@@ -217,6 +218,16 @@ def ledger_terms(model: Model, fl: FLConfig):
         "dp_rho": up.dp_rho_per_round(),
     }
     return t, up, down
+
+
+def _telemetry_spec(fl: FLConfig, up, down, sizes):
+    """The static per-stage byte spec when the flight recorder is on, else
+    None; scaled like ``ledger_terms``: SCAFFOLD and FedDANE bill the
+    uplink twice."""
+    if not fl.telemetry:
+        return None
+    scaff = 2.0 if fl.algorithm in ("scaffold", "feddane") else 1.0
+    return obs_tel.telemetry_spec(up, down, sizes, up_scale=scaff)
 
 
 def _make_ledger(terms: dict, n_sel) -> CommLedger:
@@ -561,7 +572,8 @@ def _attach_scenario(population, scenario):
 
 def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                           C: int, population=None, store=None,
-                          device=None, scenario=None) -> RoundProgram:
+                          device=None, scenario=None,
+                          tele=None) -> RoundProgram:
 
     def hop_rng(ctx):
         # the reference's split: (local, downlink, selection, uplink,
@@ -589,8 +601,9 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         kw = {}
         if dispatch.epoch_steps is not None:
             # the scenario's per-client step budgets from the FedMCCS
-            # capability profile
-            kw["n_steps"], _ = dispatch.epoch_steps(ctx["batch"])
+            # capability profile; the scale feeds the telemetry histogram
+            kw["n_steps"], ctx["scn_escale"] = dispatch.epoch_steps(
+                ctx["batch"])
         deltas, losses, first_losses, new_ci = dispatch.client_updates(
             ctx.pop("params"), Dispatch.model_batch(ctx["batch"]),
             control=st.control, client_controls=st.client_controls,
@@ -621,6 +634,8 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                                     losses=ctx["first_losses"],
                                     resources=_resources(ctx), sizes=sizes,
                                     availability=availability)
+        if availability is not None:
+            ctx["avail"] = availability
         return ctx
 
     def hop_select(ctx):
@@ -751,7 +766,31 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
             # secagg its masked codes must arrive for the masks to
             # cancel), so the bill is the pre-dropout selection
             billed = billed + ctx["scn_dropped"]
+        ctx["billed"] = billed
         ctx["ledger"] = _make_ledger(terms, billed)
+        return ctx
+
+    def hop_telemetry(ctx):
+        # the flight recorder: reads values the round already computed and
+        # the static byte tables only, so params, pipeline state and ledger
+        # are those of the program without this hop; no host sync
+        st = ctx["state"]
+        ctrs = (store.stats(st.comm_state, ctx["ids"])
+                if store is not None else None)
+        if population is not None:
+            available = population.availability_count(st.round, ctx["ids"])
+        elif "avail" in ctx:
+            available = ctx["avail"].sum()
+        else:
+            available = torch.tensor(float(C), dtype=torch.float32,
+                                     device=device)
+        ctx["round_stats"] = obs_tel.round_stats(
+            tele, ctx["ledger"], up_unit=ctx["billed"], store=ctrs,
+            selected=ctx["n_sel"], available=available,
+            avail_duty=available / torch.tensor(
+                float(C), dtype=torch.float32, device=available.device),
+            dropped=ctx.get("scn_dropped"),
+            epoch_scale=ctx.get("scn_escale"))
         return ctx
 
     def hop_finalize(ctx):
@@ -763,6 +802,8 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
             "selected": ctx["n_sel"],
             "ledger": ctx["ledger"],
         }
+        if tele is not None:
+            ctx["metrics"]["round_stats"] = ctx["round_stats"]
         ctx["new_state"] = FLState(
             params=ctx["new_params"], server_opt_state=ctx["new_sos"],
             control=ctx.get("control"), client_controls=ctx.get("new_ci"),
@@ -795,8 +836,10 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                  else hop_wire))
     if fl.algorithm == "scaffold":
         hops.append(("control", hop_control))
-    hops += [("server_opt", hop_server_opt), ("ledger", hop_ledger),
-             ("finalize", hop_finalize)]
+    hops += [("server_opt", hop_server_opt), ("ledger", hop_ledger)]
+    if tele is not None:
+        hops.append(("telemetry", hop_telemetry))
+    hops.append(("finalize", hop_finalize))
     return RoundProgram(hops=tuple(hops))
 
 
@@ -822,9 +865,13 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
         aux = dict(population=population, cohort=C, store=store)
     dispatch = make_dispatch(model, fl, up, down, C, chunk,
                              scenario=scenario)
+    tele = _telemetry_spec(fl, up, down, model.param_sizes())
+    if tele is not None:
+        aux["telemetry"] = tele
     program = _build_server_program(fl, terms, dispatch, C,
                                     population=population, store=store,
-                                    device=device, scenario=scenario)
+                                    device=device, scenario=scenario,
+                                    tele=tele)
 
     def state_from_params(params):
         def zeros(lead=()):
@@ -927,13 +974,30 @@ def _gated_metrics(tmpl: dict, base: dict) -> dict:
     return out
 
 
+def stack_rows(rows):
+    """Per-round values stacked over a leading round dim: tensors with
+    ``torch.stack``, dicts by key, dataclasses (the ``CommLedger``, the
+    ``RoundStats``) field by field, a ``None`` field left ``None``."""
+    first = rows[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: stack_rows([r[k] for r in rows]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: stack_rows([getattr(r, f.name) for r in rows])
+            for f in dataclasses.fields(first)})
+    return torch.stack(rows)
+
+
 def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
-               eval_every=None):
+               eval_every=None, tracer=None):
     """Run ``n`` rounds; ``data_fn(round_idx) -> batch``.  Returns
     ``(final_state, metrics)`` with every metric stacked over a leading
-    (n,) round dim (the ledger as a CommLedger of (n,) tensors).  On the
-    ``async`` topology a round is one server event, which samples its own
-    dispatch batches: no batch is drawn for it here.
+    (n,) round dim (the ledger as a CommLedger of (n,) tensors, the
+    telemetry as a RoundStats).  On the ``async`` topology a round is one
+    server event, which samples its own dispatch batches: no batch is
+    drawn for it here.
 
     ``metrics_fn(new_state, metrics) -> metrics`` (optional) appends
     per-round metrics such as a held-out eval loss.  It runs every
@@ -941,16 +1005,42 @@ def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
     the last of each cadence window, where the pre-round ``state.round %
     eval_every == eval_every - 1``, so a run whose length is a multiple of
     the cadence evaluates its final round.  On the other rounds its
-    eval-only float metrics are NaN."""
+    eval-only float metrics are NaN.
+
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`) records one span
+    per round, synchronised with the card inside it, of kind ``compile``
+    when ``kernels/build.py`` built or loaded a CUDA library during the
+    round and ``chunk`` otherwise, and runs the whole loop under the
+    tracer's ``torch.profiler`` hook (a no-op without a profile
+    directory)."""
     if n <= 0:
         return state, None
+    if tracer is None:
+        return _run(engine, state, data_fn, n, metrics_fn, eval_every, None)
+    with tracer.profile():
+        return _run(engine, state, data_fn, n, metrics_fn, eval_every,
+                    tracer)
+
+
+def _run(engine, state, data_fn, n, metrics_fn, eval_every, tracer):
+    from repro_torch.kernels import build
     ee = max(1, int(engine.eval_every if eval_every is None else eval_every))
+    sync = (torch.cuda.synchronize if engine.device.type == "cuda"
+            else lambda _dev: None)
     rows, tmpl = [], None
     for _ in range(n):
         due = state.round % ee == ee - 1
         batch = None if engine.topology.kind == "async" else \
             data_fn(state.round)
-        state, m = engine.round_fn(state, batch)
+        if tracer is None:
+            state, m = engine.round_fn(state, batch)
+        else:
+            loads = sum(build.LOADS.values())
+            with tracer.span("chunk", rounds=1) as sp:
+                state, m = engine.round_fn(state, batch)
+                sync(engine.device)
+                if sum(build.LOADS.values()) > loads:
+                    sp["kind"] = "compile"
         if metrics_fn is not None and due:
             m = metrics_fn(state, m)
             tmpl = m
@@ -960,9 +1050,4 @@ def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
         # dtypes from one call on the final state, its values unused
         tmpl = metrics_fn(state, rows[-1][0])
     rows = [_gated_metrics(tmpl, m) if skipped else m for m, skipped in rows]
-    metrics = {k: torch.stack([m[k] for m in rows])
-               for k in rows[0] if k != "ledger"}
-    led = {k: torch.stack([m["ledger"].fields()[k] for m in rows])
-           for k in rows[0]["ledger"].fields()}
-    metrics["ledger"] = CommLedger(**led)
-    return state, metrics
+    return state, stack_rows(rows)

@@ -10,7 +10,8 @@ of the sources and flags; all missing libraries compile in parallel, one
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false -prec-div=true`` so
 that the QSGD arithmetic is never contracted into FMAs or approximated —
 the kernels must be bit-exact with the reference.  ``LAUNCHES`` counts the
-launches of every kernel by name.
+launches of every kernel by name, ``LOADS`` the libraries built or loaded
+by name (the tracer's ``compile`` spans read it).
 """
 from __future__ import annotations
 
@@ -33,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # CUDA launches by kernel name: each wrapper adds one where it launches its
 # kernel, and nowhere else
 LAUNCHES: collections.Counter = collections.Counter()
+
+# libraries built or loaded into this process, by name: one each, when
+# ``function`` first binds one of its entry points
+LOADS: collections.Counter = collections.Counter()
 
 # ptxas reports (registers, shared memory, spills) of the last build, by name
 LOG: dict = {}
@@ -117,6 +122,7 @@ def function(lib: str, symbol: str, argtypes):
             if lib not in _LIBS:
                 build((lib,))
                 _LIBS[lib] = ctypes.CDLL(str(lib_path(lib)))
+                LOADS[lib] += 1
             fn = getattr(_LIBS[lib], symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -56,9 +56,22 @@ and, under ``--async``, a flush deadline tracking
         --clients 16 --scenario-trace square --scenario-availability 0.5 \
         --scenario-dropout 0.3 --compressor "qsgd:4>>secagg"
 
+``--trace PATH`` turns ``FLConfig.telemetry`` on and writes the flight
+recorder's JSONL trace (a ``meta`` header, one span per round, the
+``stages`` record, one ``round`` record per round or event, ``eval`` and
+``flush`` events, a ``checkpoint`` span); ``--profile-dir DIR`` also runs
+the rounds under ``torch.profiler`` and writes its Chrome / TensorBoard
+trace into DIR; ``--checkpoint PATH`` saves the final params in the
+reference's npz format (``repro_torch.checkpoint``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \
+        --compressor "topk:0.05>>qsgd:8" --backend kernel --rounds 4 \
+        --trace run.jsonl --profile-dir prof --checkpoint ckpt.npz
+    PYTHONPATH=src python -m repro_torch.obs.report run.jsonl
+
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
-``--device cpu`` is given.  The reference CLI's mesh, hierarchical,
-checkpoint and tracing options are not ported yet.
+``--device cpu`` is given.  The reference CLI's mesh and hierarchical
+options are not ported yet.
 """
 from __future__ import annotations
 
@@ -146,7 +159,56 @@ def _parse(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
+    ap.add_argument("--checkpoint", default="", metavar="PATH",
+                    help="save the final params here (npz, the "
+                         "reference's format)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="flight recorder: write a schema-versioned JSONL "
+                         "trace here (spans, events and one record per "
+                         "round); implies FLConfig.telemetry. Render with "
+                         "python -m repro_torch.obs.report PATH")
+    ap.add_argument("--profile-dir", default="", metavar="DIR",
+                    help="with --trace: also run the rounds under "
+                         "torch.profiler and write its trace into DIR")
     return ap.parse_args(argv)
+
+
+def _tracer(args):
+    """The run's Tracer when ``--trace`` was given, else None."""
+    if not args.trace:
+        return None
+    from repro_torch.obs.trace import Tracer
+    topo = ("population" if args.population > 0 else
+            "async" if args.async_mode else "sim")
+    if args.population > 0 and args.async_mode:
+        topo = "population-async"
+    return Tracer(args.trace, profile_dir=args.profile_dir,
+                  meta=dict(arch=args.arch, topology=topo,
+                            rounds=args.rounds, compressor=args.compressor,
+                            algorithm=args.algorithm))
+
+
+def _finish(args, tracer, engine, ms, params):
+    """The run's records (the ``stages`` record, one ``round`` record per
+    round, a ``flush`` event per async flush), then the checkpoint."""
+    if tracer is not None:
+        tracer.emit_rounds(ms, spec=engine.aux.get("telemetry"))
+        if "flushed" in ms:
+            for i, v in enumerate(ms["flushed"].tolist()):
+                if v > 0:
+                    tracer.event("flush", round=i)
+    if args.checkpoint:
+        from repro_torch import checkpoint
+        if tracer is not None:
+            with tracer.span("checkpoint", path=args.checkpoint):
+                checkpoint.save(args.checkpoint, params)
+        else:
+            checkpoint.save(args.checkpoint, params)
+        print("saved", args.checkpoint)
+    if tracer is not None:
+        tracer.close()
+        print(f"trace: {args.trace} (render: python -m repro_torch.obs.report "
+              f"{args.trace})")
 
 
 def main(argv=None):
@@ -181,11 +243,13 @@ def main(argv=None):
                   scenario_dropout=args.scenario_dropout,
                   scenario_epoch_scale=args.scenario_epoch_scale,
                   scenario_deadline_quantile=args.scenario_deadline_quantile,
-                  scenario_seed=args.scenario_seed, seed=args.seed)
+                  scenario_seed=args.scenario_seed, seed=args.seed,
+                  telemetry=bool(args.trace))
+    tracer = _tracer(args)
     if args.population > 0:
-        return _population(args, cfg, model, fl, device)
+        return _population(args, cfg, model, fl, device, tracer)
     if args.async_mode:
-        return _async(args, cfg, model, fl, device)
+        return _async(args, cfg, model, fl, device, tracer)
     sim = make_sim_step(model, fl, args.clients, chunk=args.seq,
                         device=device)
     data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=args.clients,
@@ -211,7 +275,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     state, ms = run_rounds(sim.engine, state,
                            lambda r: sample_round(data, r, device),
-                           args.rounds, metrics_fn=metrics_fn)
+                           args.rounds, metrics_fn=metrics_fn, tracer=tracer)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0
@@ -223,7 +287,10 @@ def main(argv=None):
               f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x"
               + (f" eval={ev_loss:.3f}" if ev_loss == ev_loss else ""),
               flush=True)
+        if tracer is not None and ev_loss == ev_loss:
+            tracer.event("eval", round=i, loss=ev_loss)
     print(f"{args.rounds} rounds in {secs:.2f}s on {device}")
+    _finish(args, tracer, sim.engine, ms, state.params)
     return state, ms
 
 
@@ -237,7 +304,7 @@ def _print_events(ms, n):
               flush=True)
 
 
-def _async(args, cfg, model, fl, device):
+def _async(args, cfg, model, fl, device, tracer=None):
     """The virtual-clock path: --rounds counts server events."""
     import torch
 
@@ -263,17 +330,19 @@ def _async(args, cfg, model, fl, device):
           f"uplink={args.compressor} backend={args.backend}", flush=True)
     state = a.init_fn(args.seed)
     t0 = time.perf_counter()
-    state, ms = run_rounds(a.engine, state, data_fn, args.rounds)
+    state, ms = run_rounds(a.engine, state, data_fn, args.rounds,
+                           tracer=tracer)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0
     _print_events(ms, args.rounds)
     print(f"{args.rounds} events, {int(ms['server_version'][-1])} flushes "
           f"in {secs:.2f}s on {device}")
+    _finish(args, tracer, a.engine, ms, state.params)
     return state, ms
 
 
-def _population(args, cfg, model, fl, device):
+def _population(args, cfg, model, fl, device, tracer=None):
     """The streaming-cohort path: --population clients exist, --cohort
     train per round (per generation under --async), per-client pipeline
     state bounded by the store."""
@@ -310,13 +379,15 @@ def _population(args, cfg, model, fl, device):
           f"{'async' if args.async_mode else 'sync'} device={device} "
           f"uplink={args.compressor} backend={args.backend}", flush=True)
     t0 = time.perf_counter()
-    state, ms = run_rounds(engine, state, data_fn, args.rounds)
+    state, ms = run_rounds(engine, state, data_fn, args.rounds,
+                           tracer=tracer)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0
     if args.async_mode:
         _print_events(ms, args.rounds)
         print(f"{args.rounds} events in {secs:.2f}s on {device}")
+        _finish(args, tracer, engine, ms, state.params)
         return state, ms
     for i in range(args.rounds):
         print(f"round {i:>4} loss={float(ms['loss'][i]):.3f} "
@@ -324,6 +395,7 @@ def _population(args, cfg, model, fl, device):
               f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB",
               flush=True)
     print(f"{args.rounds} rounds in {secs:.2f}s on {device}")
+    _finish(args, tracer, engine, ms, state.params)
     return state, ms
 
 

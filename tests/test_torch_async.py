@@ -341,16 +341,37 @@ def test_async_guards_match_reference(kw, topo_kw, match):
 
 
 @pytest.mark.parametrize("kw,module", [
-    (dict(telemetry=True), "repro.obs.telemetry"),
-    # the ported scenario and privacy knobs leave the rejection in place
-    (dict(telemetry=True, scenario_deadline_quantile=0.5),
-     "repro.obs.telemetry"),
-    (dict(telemetry=True, uplink_compressor="qsgd:4>>dpnoise:1.0>>secagg"),
-     "repro.obs.telemetry")])
-def test_async_unported_knobs_raise(kw, module):
+    (dict(telemetry=True), "repro.core.engine"),
+    # the flight recorder beside the ported scenario and privacy knobs
+    (dict(telemetry=True, scenario_deadline_quantile=0.5,
+          scenario_dropout=0.5), "repro.core.engine"),
+    (dict(telemetry=True, server_opt="fedadam", server_lr=0.05),
+     "repro.core.engine")])
+def test_async_unported_knobs_raise(kw, module, given_local_update,
+                                    monkeypatch):
+    """The telemetry knob, once rejected here, now runs: 4 events whose
+    ``RoundStats`` (one upload, the flush's downlink slots, the one-hot
+    staleness, the buffer fill, the dropout) equal the reference's bit for
+    bit, as does the run; a topology the port still lacks raises naming
+    the reference module.  (Telemetry under secagg: test_torch_obs.py.)"""
+    from repro_torch.core import scenario as scn_t
+    monkeypatch.setattr(scn_t, "PRNGKey",
+                        lambda seed: JaxKey(jax.random.PRNGKey(seed)))
+    fl_kw = dict(BASE, **kw)
+    st_j, st_t, ev_j, ev_t, et, _ = _run_both(
+        fl_kw, dict(buffer_size=2, latency_profile="uniform"), n_events=4)
+    _same_run(st_j, st_t, ev_j, ev_t)
+    assert et.aux["telemetry"].up_names
+    for e, ((_, mj), (_, mt, _)) in enumerate(zip(ev_j, ev_t)):
+        rs_j, rs_t = mj["round_stats"], mt["round_stats"]
+        for f, v in rs_t.fields().items():
+            np.testing.assert_array_equal(v.numpy(),
+                                          np.asarray(getattr(rs_j, f)),
+                                          err_msg=f"event {e} {f}")
     _, mt = models()
     with pytest.raises(NotImplementedError, match=module):
-        ET.make_round_engine(mt, FLConfig(**kw), ET.Topology.async_(C),
+        ET.make_round_engine(mt, FLConfig(**kw),
+                             ET.Topology(kind="hier", n_clients=C),
                              device="cpu", data_fn=_port_data)
 
 

@@ -57,15 +57,14 @@ def test_unported_knobs_raise_naming_the_reference_module():
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import Topology, make_round_engine
-    from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
     fl = FLConfig(uplink_compressor="qsgd:8")
     for call, module in (
-            (lambda: make_sim_step(model, dataclasses.replace(
-                fl, telemetry=True), 2, device="cpu"),
-             "repro.obs.telemetry"),
+            (lambda: make_round_engine(model, fl, Topology(kind="hier",
+                                                           n_clients=2),
+                                       device="cpu"), "repro.core.engine"),
             (lambda: make_round_engine(model, fl, Topology(kind="star",
                                                            n_clients=2),
                                        device="cpu"), "repro.core.engine"),
