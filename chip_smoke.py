@@ -180,12 +180,38 @@ line is printed):
      slots summing to the ledger, the peak memory under 76 GiB, and the
      bf16 checkpoint (2.47 GB) saved, restored bit-equal and deleted, its
      seconds printed beside the card's name and power limit;
-  13. the ``kernels`` JSON line: launch counts are those of the main-path
+  13. slice 10's model families: the ``SMOKE`` config of each text-only
+     arch (``qwen2_5_32b`` with its qkv bias, ``deepseek_67b``, the MoE
+     archs ``qwen3_moe_30b_a3b``, ``moonshot_v1_16b_a3b`` and
+     ``llama4_scout_17b_a16e``, ``mamba2_370m`` and the Jamba hybrid) on
+     the sim round, 4 clients, seq 32, batch 2, E=1, 2 rounds of EF
+     ``topk:0.05>>qsgd:8`` on both backends: params, EF residuals, ledger
+     and losses bit-identical, the ledger equal to its static terms, the
+     losses finite.  ``whisper_base`` and ``internvl2_76b`` (whose inputs
+     the FL data does not have, in the reference too) run ``Model.loss``
+     and its gradients on a seeded ``frontend`` / ``patches`` batch,
+     held against the port's CPU run of the same params and batch (f32:
+     loss within rtol 1e-5, gradients within rtol 1e-4 / atol 1e-6); then
+     ``whisper_base`` at full size (bf16): one loss and gradient at 1,500
+     frames, seq 128, batch 2, its peak memory printed;
+  13b. ``mamba2_370m`` at full width and depth (419,825,152 params), 2
+     clients, seq 256, batch 1, E=1, 2 rounds of EF
+     ``topk:0.05>>qsgd:4@fused`` through the kernels;
+  13c. ``qwen3_moe_30b_a3b`` at full width cut to 1 layer (1,236,015,104
+     params), 2 clients, seq 128 (10 slots an expert), batch 1, E=1, 2
+     rounds of the same chain through the kernels, and the share of
+     routed tokens dropped past an expert's capacity.  Phases 13b and 13c
+     need finite losses and parameters, the ledger equal to its static
+     terms and a peak memory under 76 GiB, and print the peak, the round
+     times, the last round's busy share under ``torch.profiler`` and the
+     launches of #1 and #3 beside the card's name and power limit;
+  14. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
-     10b, 11, 12, 12b), each counted from 0 just before its phase (the
-     count sketch's by path too, each of which must launch); the pack and
-     unpack kernels are on no path and count their phase-3 calls;
-  14. last line: ``{"ok": true, "device": {...}}``.
+     10b, 11, 12, 12b, 13, 13b, 13c), each counted from 0 just before its
+     phase (the count sketch's by path too, each of which must launch);
+     the pack and unpack kernels are on no path and count their phase-3
+     calls;
+  15. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -364,6 +390,20 @@ SCN_ASYNC_EVENTS = 24
 # slice 9's flight recorder: phase 6b's population at fewer rounds (round 1
 # already evicts)
 TELE_POP_ROUNDS = 3
+# slice 10's model families: the text-only archs' SMOKE configs on the sim
+# round, and the two whose inputs the FL data lacks
+FAMILY_ARCHS = ("qwen2_5_32b", "deepseek_67b", "qwen3_moe_30b_a3b",
+                "moonshot_v1_16b_a3b", "llama4_scout_17b_a16e",
+                "mamba2_370m", "jamba_1_5_large_398b")
+FAMILY_CLIENTS, FAMILY_SEQ, FAMILY_BATCH, FAMILY_ROUNDS = 4, 32, 2, 2
+FAMILY_SPEC = "topk:0.05>>qsgd:8"
+FRONTEND_ARCHS = ("whisper_base", "internvl2_76b")
+FRONTEND_LOSS_RTOL, FRONTEND_GRAD_RTOL, FRONTEND_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+WHISPER_SEQ, WHISPER_BATCH = 128, 2
+FULL_SPEC = "topk:0.05>>qsgd:4@fused"
+# (phase, arch, layers kept (None: all), clients, seq, batch, rounds)
+FULL_RUNS = (("13b", "mamba2_370m", None, 2, 256, 1, 2),
+             ("13c", "qwen3_moe_30b_a3b", 1, 2, 128, 1, 2))
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -393,6 +433,11 @@ KERNELS = {
                      "src/repro/kernels/count_sketch.py:52"),
 }
 OFF_PATH = ("pack_codes", "unpack_codes")      # no path runs them
+# the code widths phase 3 checks each kernel at, the reported one first
+# (QSGD quantizes at 8 bits, and at 4 under @fused where a carrier's block
+# is odd)
+BITS = {"qsgd_quantize": (8, 4), "pack_codes": (2, 4),
+        "unpack_codes": (2, 4)}
 
 
 def fail(msg):
@@ -484,10 +529,16 @@ def check_kernels(dev):
     # the carriers the ternary stage gets from stc (0.01) and topk:0.1
     tern_carriers = sorted({_k(n, f) for n in leaves for f in (0.01, 0.1)})
     tern_sizes = sorted(set(leaves + tern_carriers + [100, 3001]))
-    sizes = {"threshold_sparsify": leaves + [3001, LLAMA_W_UP],
-             "qsgd_quantize": carriers + [_k(LLAMA_W_UP, 0.05)],
-             "qsgd_pack": [k for k in carriers if min(2048, k) % 2 == 0]
-             + [_k(LLAMA_W_UP, 0.05)],
+    # phases 13b and 13c: every leaf of the full-width runs and its carrier
+    full = sorted({n for r in FULL_RUNS
+                   for n in full_run_model(r[0])[0].param_sizes()})
+    full_carriers = sorted({_k(n, 0.05) for n in full})
+    big = sorted({LLAMA_W_UP} | set(full))
+    big_carriers = sorted({_k(LLAMA_W_UP, 0.05)} | set(full_carriers))
+    sizes = {"threshold_sparsify": sorted(set(leaves + [3001] + big)),
+             "qsgd_quantize": sorted(set(carriers + big_carriers)),
+             "qsgd_pack": [k for k in sorted(set(carriers + big_carriers))
+                           if min(2048, k) % 2 == 0],
              # "u" marks an unaligned view (x[1:], the scalar load path)
              "ternarize": tern_sizes + ["u5001", LLAMA_W_UP],
              "ternarize_pack": tern_sizes + ["u5001", LLAMA_W_UP],
@@ -497,17 +548,19 @@ def check_kernels(dev):
              "unpack_codes": [(3, 20)] + [(-(-n // 2048), 2048)
                                           for n in leaves + [LLAMA_W_UP]]}
     print(f"paper_lm leaf sizes {leaves}; top-k carriers {carriers}; "
-          f"ternary carriers {tern_carriers}")
+          f"ternary carriers {tern_carriers}; 13b and 13c leaf sizes {full}, "
+          f"top-k carriers {full_carriers}")
     build.LAUNCHES.clear()
     results = {}
     for name, ns in sizes.items():
         worst, worst_rel = 0.0, 0.0
+        variants = BITS.get(name, (None,))
         for n in ns:
-            for variant in (2, 4) if name in OFF_PATH else (None,):
+            for variant in variants:
                 row = check_one(name, n, variant, g, dev)
                 worst = max(worst, row["max_abs_err"])
                 worst_rel = max(worst_rel, row.get("psum_rel_err", 0.0))
-                if variant in (None, 2):
+                if variant == variants[0]:
                     results[name] = dict(row, max_abs_err=worst)
                     if "psum_rel_err" in row:
                         results[name]["psum_rel_err"] = worst_rel
@@ -693,8 +746,9 @@ def check_one(name, n, bits, g, dev):
             nbytes = 12 * n + 4
             n_ops = 3 * n
         elif name == "qsgd_quantize":
-            kern = lambda: qsgd.qsgd_quantize_cuda(x, u, 8, blk)
-            plain = lambda: qsgd.qsgd_quantize_plain(x, u, 8, blk)
+            kern = lambda: qsgd.qsgd_quantize_cuda(x, u, bits, blk)
+            plain = lambda: qsgd.qsgd_quantize_plain(x, u, bits, blk)
+            label = f"{label} bits={bits}"
             nbytes = 8 * n + nb * blk + 4 * nb
             n_ops = 8 * n
         elif name == "qsgd_pack":
@@ -806,11 +860,12 @@ def cat_metrics(a, b):
 
 
 def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
-            local_steps, local_lr, peak_log=None, prof_out=None):
+            local_steps, local_lr, peak_log=None, prof_out=None, times=None):
     """``rounds`` sim rounds; with a ``prof_out`` dict the last round runs
     under ``torch.profiler`` (a whole run's trace takes longer to
     summarise than the run) and ``prof_out`` gets the profiler and the
-    round's wall time."""
+    round's wall time; a ``times`` list gets every round's wall time, each
+    round synchronised with the card."""
     from repro_torch.core.engine import run_rounds
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
@@ -824,12 +879,21 @@ def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
     data = fed_data(model, clients, seq, batch)
     data_fn = lambda r: sample_round(data, r, dev)
     state = sim.init_fn(0)
-    if prof_out is None:
-        state, ms = run_rounds(sim.engine, state, data_fn, rounds)
-        torch.cuda.synchronize()
-        return sim, state, ms
-    state, head = run_rounds(sim.engine, state, data_fn, rounds - 1)
+    n = rounds - (prof_out is not None)
+    if times is None:
+        state, head = run_rounds(sim.engine, state, data_fn, n)
+    else:
+        head = None
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_rounds(sim.engine, state, data_fn, 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            head = cat_metrics(head, m)
     torch.cuda.synchronize()
+    if prof_out is None:
+        return sim, state, head
     prof = profiled_if(True)
     prof.start()
     t0 = time.perf_counter()
@@ -838,6 +902,8 @@ def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
     prof_out.update(secs=time.perf_counter() - t0)
     prof.stop()
     prof_out["prof"] = prof
+    if times is not None:
+        times.append(prof_out["secs"])
     return sim, state, cat_metrics(head, tail)
 
 
@@ -932,9 +998,7 @@ def paper_lm_phase(dev):
 
 
 def llama_phase(dev, fl_kw, expect, what):
-    """llama3_2_1b at full width and depth through the kernels: finite
-    loss and params, the ledger equal to its static terms, and the kernels
-    of ``expect`` launched."""
+    """llama3_2_1b at full width and depth through the kernels."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
 
@@ -946,33 +1010,45 @@ def llama_phase(dev, fl_kw, expect, what):
           f"{cfg.vocab_size}, {cfg.dtype}; {LLAMA_CLIENTS} clients, seq "
           f"{LLAMA_SEQ}, batch {LLAMA_BATCH}, {LLAMA_ROUNDS} rounds of "
           f"{fl_kw} backend=kernel", flush=True)
+    wide_phase(dev, model, fl_kw, expect, f"llama3_2_1b {what}",
+               LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS)
+
+
+def wide_phase(dev, model, fl_kw, expect, what, clients, seq, batch, rounds,
+               inspect=None):
+    """A full-width model's sim rounds through the kernels, E=1 at lr 0.05,
+    the last round under ``torch.profiler``: finite losses and params, the
+    ledger equal to its static terms, the kernels of ``expect`` launched
+    and no other, the peak memory under LLAMA_PEAK_GIB.  Prints the round
+    times, the peak and the last round's busy share; ``inspect(params)``
+    (optional) then reads the final params."""
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()
     t0 = time.perf_counter()
-    peak_log, prof = {}, {}
-    sim, state, ms = run_sim(model, fl_kw, "kernel", LLAMA_CLIENTS,
-                             LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS, dev, 1,
-                             0.05, peak_log=peak_log, prof_out=prof)
+    peak_log, prof, times = {}, {}, []
+    sim, state, ms = run_sim(model, fl_kw, "kernel", clients, seq, batch,
+                             rounds, dev, 1, 0.05, peak_log=peak_log,
+                             prof_out=prof, times=times)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
-    check_launches(ran, expect, f"llama3_2_1b {what}")
-    losses = [float(v) for v in ms["loss"]]
-    if not all(v == v and abs(v) < 1e6 for v in losses):
-        fail(f"llama3_2_1b {what}: loss not finite {losses}")
-    check_ledger(sim, ms, LLAMA_CLIENTS, f"llama3_2_1b {what}")
-    for t in _tensors(state.params):
-        if not bool(torch.isfinite(t).all()):
-            fail(f"llama3_2_1b {what}: non-finite parameters")
+    check_launches(ran, expect, what)
+    losses = check_finite(ms, state, what)
+    check_ledger(sim, ms, clients, what)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"llama3_2_1b {what}: loss per round "
-          f"{[round(v, 6) for v in losses]} "
-          f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
+    if peak >= LLAMA_PEAK_GIB:
+        fail(f"{what}: peak memory {peak:.1f} GiB, not under "
+             f"{LLAMA_PEAK_GIB} GiB")
+    print(f"{what}: loss per round {fmt(losses)}, round times "
+          f"{', '.join(f'{t:.3f}' for t in times)} s (the last under the "
+          f"profiler), up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
           f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round, "
-          f"ledger == static terms, launches {ran}, peak memory {peak:.1f} "
-          f"GiB (last raised in the {peak_log.get('hop')} hop), {secs:.2f}s, "
-          f"the last round under the profiler", flush=True)
-    print_profile(prof["prof"], prof["secs"], f"llama3_2_1b {what}, last "
-                  f"round")
+          f"ledger == static terms, launches {ran}, peak memory {peak:.2f} "
+          f"GiB (limit {LLAMA_PEAK_GIB:.0f}; last raised in the "
+          f"{peak_log.get('hop', 'init')} hop) on {card_line()}, "
+          f"{secs:.2f}s", flush=True)
+    print_profile(prof["prof"], prof["secs"], f"{what}, last round")
+    if inspect is not None:
+        inspect(state.params)
     del sim, state, ms
     torch.cuda.empty_cache()
 
@@ -2981,6 +3057,268 @@ def llama_telemetry_phase(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 13-13c: every model family
+# ---------------------------------------------------------------------------
+
+def families_phase(dev):
+    """Slice 10's families: each text-only arch's SMOKE config on the sim
+    round, the backends bit-identical; the frontend families' loss and
+    gradients against the port's CPU run; whisper_base at full size."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.model import Model
+
+    for arch in FAMILY_ARCHS:
+        model = Model(get_smoke(arch))
+        cfg = model.cfg
+        print(f"{arch} SMOKE: {model.param_count():,} params in "
+              f"{len(model.defs)} leaves, pattern {cfg.block_pattern} x "
+              f"{cfg.num_superblocks}, d_model {cfg.d_model}, experts "
+              f"{cfg.num_experts} top-{cfg.experts_per_token}, "
+              f"{cfg.dtype}; {FAMILY_CLIENTS} clients, seq {FAMILY_SEQ}, "
+              f"batch {FAMILY_BATCH}, E=1, {FAMILY_ROUNDS} rounds of EF "
+              f"{FAMILY_SPEC}", flush=True)
+        out = {}
+        for backend in ("kernel", "jax"):
+            what = f"{arch} SMOKE backend={backend}"
+            before = launch_counts()
+            t0 = time.perf_counter()
+            sim, state, ms = run_sim(
+                model, dict(uplink_compressor=FAMILY_SPEC), backend,
+                FAMILY_CLIENTS, FAMILY_SEQ, FAMILY_BATCH, FAMILY_ROUNDS, dev,
+                1, 0.05)
+            secs = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            check_launches(ran, ("threshold_sparsify", "qsgd_quantize")
+                           if backend == "kernel" else (), what)
+            losses = check_finite(ms, state, what)
+            check_ledger(sim, ms, FAMILY_CLIENTS, what)
+            print(f"{what}: loss per round {fmt(losses)} "
+                  f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round, "
+                  f"ledger == static terms, launches {ran} ({secs:.2f}s)",
+                  flush=True)
+            out[backend] = (_tensors(state.params)
+                            + _tensors(state.comm_state)
+                            + list(ms["ledger"].fields().values())
+                            + [ms["loss"]])
+        n = check_pairs(out["kernel"], out["jax"],
+                        f"{arch} SMOKE: kernel vs plain backend")
+        print(f"{arch} SMOKE: kernel and plain backends bit-identical ({n} "
+              f"tensors: params, EF residuals, ledger, loss)", flush=True)
+    for arch in FRONTEND_ARCHS:
+        frontend_check(arch, dev)
+    whisper_full(dev)
+
+
+def frontend_batch(cfg, seq, batch, device, seed=0):
+    """A seeded batch with the stubbed frontend's embeddings: ``frontend``
+    (encdec) or ``patches`` (vlm), which the FL data does not carry."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=device)
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1),
+           "mask": torch.ones((batch, seq), device=device)}
+    key, n = (("frontend", cfg.frontend_tokens) if cfg.family == "encdec"
+              else ("patches", cfg.num_patches))
+    out[key] = torch.randn((batch, n, cfg.d_model), generator=g,
+                           device=device).to(cfg.dtype)
+    return out
+
+
+def loss_and_grads(model, params, batch):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, aux = model.loss(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), aux["xent"].detach(), list(grads)
+
+
+def frontend_check(arch, dev):
+    """``arch``'s SMOKE loss and gradients on the card against the port's
+    CPU run of the same params and batch (f32 both)."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.model import Model
+
+    model = Model(get_smoke(arch))
+    params = model.init(0, "cpu")
+    batch = frontend_batch(model.cfg, FAMILY_SEQ, FAMILY_BATCH, "cpu")
+    loss_c, xent_c, grads_c = loss_and_grads(model, params, batch)
+    t0 = time.perf_counter()
+    loss_d, xent_d, grads_d = loss_and_grads(
+        model, {k: v.to(dev) for k, v in params.items()},
+        {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    what = f"{arch} SMOKE loss on the card vs the CPU"
+    check_pairs([loss_d.cpu(), xent_d.cpu()], [loss_c, xent_c], what,
+                rtol=FRONTEND_LOSS_RTOL)
+    worst = 0.0
+    for name, gd, gc in zip(params, grads_d, grads_c):
+        gd = gd.cpu().double()
+        if not bool(torch.isfinite(gd).all()) or not bool(torch.allclose(
+                gd, gc.double(), rtol=FRONTEND_GRAD_RTOL,
+                atol=FRONTEND_GRAD_ATOL)):
+            fail(f"{what}: gradient {name} differs (max abs err "
+                 f"{float((gd - gc.double()).abs().max())})")
+        worst = max(worst, float((gd - gc.double()).abs().max()))
+    print(f"{what}: {model.param_count():,} params, loss "
+          f"{float(loss_d):.6f} (CPU {float(loss_c):.6f}, rtol "
+          f"{FRONTEND_LOSS_RTOL}), {len(grads_d)} gradients within rtol "
+          f"{FRONTEND_GRAD_RTOL} / atol {FRONTEND_GRAD_ATOL} (max abs err "
+          f"{worst:.3g}); {secs:.2f}s on the card", flush=True)
+
+
+def whisper_full(dev):
+    """whisper_base at full size (bf16): one loss and gradient at its
+    1,500 frames."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("whisper_base")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(0, dev)
+    batch = frontend_batch(cfg, WHISPER_SEQ, WHISPER_BATCH, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, xent, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    what = "whisper_base full size"
+    if not (bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads)):
+        fail(f"{what}: non-finite loss or gradients")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"{what}: {model.param_count():,} params in {len(model.defs)} "
+          f"leaves ({cfg.num_layers} decoder + {cfg.encoder_layers} encoder "
+          f"layers, no cut, {cfg.dtype}), frontend {cfg.frontend_tokens} "
+          f"frames, seq {WHISPER_SEQ}, batch {WHISPER_BATCH}: loss "
+          f"{float(loss):.4f}, {len(grads)} finite gradients in "
+          f"{secs:.2f}s, peak memory {peak:.2f} GiB on {card_line()}",
+          flush=True)
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def fused_chain_kernels(model, fraction=0.05, block=2048):
+    """The kernels the kernel backend runs for EF ``topk:<fraction>>>
+    qsgd:4@fused``: #1 on every leaf, #3 on each carrier whose adapted
+    QSGD block (``min(block, k)``) is even, and #2 on the odd ones (which
+    then pack in PyTorch)."""
+    from repro_torch.compress.sparsification import _k
+
+    odd = any(min(block, _k(n, fraction)) % 2 for n in model.param_sizes())
+    return ("threshold_sparsify", "qsgd_pack") + \
+        (("qsgd_quantize",) if odd else ())
+
+
+def full_run_model(tag):
+    """The Model of a FULL_RUNS row (defs only, nothing allocated), its
+    depth cut where the row says, and the row."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    row = next(r for r in FULL_RUNS if r[0] == tag)
+    cfg = get_arch(row[1])
+    if row[2] is not None:
+        cfg = dataclasses.replace(cfg, num_layers=row[2])
+    return Model(cfg), row
+
+
+def moe_probe(model, params, tokens):
+    """The routing of superblock 0's ``attn+moe`` entry over ``tokens`` (C,
+    B, S) at ``params``, each sequence on its own, through the model's own
+    layer functions up to the MoE's input: the share of routed (token,
+    expert) pairs past capacity and the busiest expert's demand in one
+    sequence, for the MoE's input and for the embeddings routed alone
+    (without the attention branch); the attention branch's output norm
+    over the embedding's (mean over positions); and the mean cosine
+    between two positions' normed inputs in a sequence, both ways."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MM
+
+    cfg = model.cfg
+    if cfg.block_pattern[0] != "attn+moe":
+        fail(f"moe_probe: pattern {cfg.block_pattern} has no attn+moe first")
+    p = MM._index(MM._subtree(params, "layers."), 0)["b0"]
+    seqs = tokens.reshape(-1, tokens.shape[-1])
+    S = seqs.shape[1]
+
+    def routing(x):
+        h = L.rmsnorm(x, p["ffn"]["ln"], cfg.norm_eps)
+        _, _, sel, _, keep = L.moe_route(h, p["ffn"]["router"], cfg)
+        routed = sel.sum(2) > 0                                  # (N,S,E)
+        hn = F.normalize(h.float(), dim=-1)
+        cos = (hn @ hn.transpose(1, 2)).sum((1, 2)) - S          # off-diag
+        return (float((routed & ~keep).sum() / routed.sum()),
+                int(routed.sum(1).max()), float(cos.mean() / (S * (S - 1))))
+
+    with torch.no_grad():
+        x = params["embed"].index_select(0, seqs.reshape(-1)).reshape(
+            *seqs.shape, cfg.d_model)
+        y = MM._self_attention(p["mixer"], x, cfg,
+                               torch.arange(S, device=x.device), causal=True,
+                               window=cfg.sliding_window, use_rope=True)
+        ratio = float(((y - x).float().norm(dim=-1)
+                       / x.float().norm(dim=-1)).mean())
+        return routing(y), routing(x), ratio
+
+
+def moe_line(probe, capacity, when):
+    (drop, demand, cos), (drop_e, demand_e, cos_e), ratio = probe
+    return (f"{when}: {100 * drop:.2f}% of the routed (token, expert) pairs "
+            f"dropped past capacity {capacity}, the busiest "
+            f"expert asked for {demand} tokens of a sequence, mean cosine "
+            f"between two positions' MoE inputs {cos:.4f}; the attention "
+            f"branch's output {ratio:.2f}x the embedding in norm; the "
+            f"embeddings routed alone: {100 * drop_e:.2f}% dropped, demand "
+            f"{demand_e}, cosine {cos_e:.4f}")
+
+
+def full_width_phase(dev, tag):
+    """A FULL_RUNS row at full width through the kernels (``wide_phase``);
+    for an MoE, the routing at the init and at the final params."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import sample_round
+    from repro_torch.models.layers import moe_capacity
+
+    model, (_, arch, layers, clients, seq, batch, rounds) = \
+        full_run_model(tag)
+    cfg = model.cfg
+    cut = (f"cut to {layers} of {get_arch(arch).num_layers} layers, full "
+           f"width" if layers is not None else "no depth cut")
+    what = f"{arch} ({tag}, {cut})"
+    inspect = None
+    if cfg.num_experts:
+        cap = moe_capacity(cfg, seq)
+        desc = (f", {cfg.num_experts} experts top-{cfg.experts_per_token} "
+                f"d_ff {cfg.d_ff}, capacity {cap} an expert")
+        data = fed_data(model, clients, seq, batch)
+        init = moe_probe(model, model.init(0, dev),
+                         sample_round(data, 0, dev)["tokens"])
+        print(f"{what}: " + moe_line(init, cap, "at the init on round 0's "
+                                     "batch"), flush=True)
+        inspect = lambda params: print(f"{what}: " + moe_line(
+            moe_probe(model, params, sample_round(
+                data, rounds - 1, dev)["tokens"]), cap,
+            "at the final params on the last round's batch"), flush=True)
+    else:
+        desc = (f", d_state {cfg.ssm_state}, {cfg.ssm_heads} heads of "
+                f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
+    print(f"{what}: {model.param_count():,} params in {len(model.defs)} "
+          f"leaves (largest {max(model.param_sizes()):,}), d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}{desc}, {cfg.dtype}; "
+          f"{clients} clients, seq {seq}, batch {batch}, E=1, {rounds} "
+          f"rounds of EF {FULL_SPEC} backend=kernel", flush=True)
+    wide_phase(dev, model, dict(uplink_compressor=FULL_SPEC),
+               fused_chain_kernels(model), what, clients, seq, batch,
+               rounds, inspect)
+
+
 def print_profile(prof, wall_s, what, top=10):
     """The device's busy share of the profiled run's wall time (the sum of
     its kernel and copy events), then device time by the operator that
@@ -3105,7 +3443,9 @@ def main():
                   lambda d: llama_algorithm_phase(d, "7c"),
                   selection_phase, async_phase, llama_async_phase,
                   privacy_phase, llama_privacy_phase, scenario_phase,
-                  telemetry_phase, llama_telemetry_phase):
+                  telemetry_phase, llama_telemetry_phase, families_phase,
+                  lambda d: full_width_phase(d, "13b"),
+                  lambda d: full_width_phase(d, "13c")):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -15,13 +15,14 @@ FedAdam, FedYogi), client selection, the scenario's client dynamics,
 every uplink stage the reference registers (top-k, QSGD, STC and
 ternary, the count sketch, SBC, RandMask, HSQ, UVeQ, chains of them,
 ``@fused`` packed wires, the ``secagg`` and ``dpnoise`` privacy stages)
-under error feedback or DGC, and an LFL downlink, on ``paper_lm`` and
-``llama3_2_1b``.  ``obs/`` is the flight recorder (``RoundStats``
+under error feedback or DGC, and an LFL downlink, on every arch of
+``configs/`` (dense, MoE, Mamba-2, the Jamba hybrid, Whisper's
+encoder-decoder and the VLM prefix).  ``obs/`` is the flight recorder (``RoundStats``
 telemetry, the JSONL tracer, its report) and ``checkpoint/`` saves params
 in the reference's npz format.  The compression kernels are hand-written
 CUDA for ``sm_90a`` (``kernels/csrc``); on a CPU tensor each wrapper runs
 its plain PyTorch version instead.  Knobs of ``repro`` that the port does
-not run (the mesh topologies, other model families) raise
+not run (the mesh topologies, the decode path) raise
 ``NotImplementedError`` naming the JAX module that has them.
 """
 from repro_torch.device import resolve_device

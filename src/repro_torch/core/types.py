@@ -1,10 +1,10 @@
 """Configuration and state dataclasses (port of ``repro.core.types``).
 
 ``ArchConfig`` keeps the field names and defaults of the JAX reference so
-configs read the same; only the dense ``attn+mlp`` family is built by
-``repro_torch.models``.  ``dtype`` is a ``torch.dtype``.  ``FLConfig`` is a
-verbatim copy of the reference's fields and defaults: knobs this slice does
-not run are rejected where the engine reads them.
+configs read the same; ``repro_torch.models`` builds every family of them
+(dense, moe, ssm, hybrid, encdec, vlm).  ``dtype`` is a ``torch.dtype``.
+``FLConfig`` is a verbatim copy of the reference's fields and defaults:
+knobs this slice does not run are rejected where the engine reads them.
 """
 from __future__ import annotations
 
@@ -75,9 +75,17 @@ class ArchConfig:
             f"pattern length {len(self.block_pattern)}")
         return self.num_layers // len(self.block_pattern)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def reduced(self, **overrides) -> "ArchConfig":
         """The smoke-test variant of the same family (2 superblocks, small
-        dims) — the reference's ``ArchConfig.reduced`` for dense archs."""
+        dims) — the reference's ``ArchConfig.reduced``."""
         pat = self.block_pattern
         small = dict(
             num_layers=2 * len(pat),

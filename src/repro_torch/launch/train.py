@@ -1,5 +1,8 @@
 """Federated training CLI, sim path (port of ``repro.launch.train``):
-clients run one after another on one card.
+clients run one after another on one card.  ``--arch`` takes every arch
+of ``repro_torch.configs`` (an id or its alias) at its full config but
+``whisper_base`` and ``internvl2_76b``, whose batches need the stubbed
+frontend's embeddings, which the synthetic FL data does not carry.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper_lm \\
         --compressor "topk:0.05>>qsgd:8" --backend kernel
@@ -77,6 +80,10 @@ from __future__ import annotations
 
 import argparse
 import time
+
+
+# families whose batches need a stubbed frontend's embeddings
+FRONTEND_INPUTS = {"encdec": "frontend", "vlm": "patches"}
 
 
 def _parse(argv=None):
@@ -226,6 +233,13 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    if cfg.family in FRONTEND_INPUTS:
+        # before any allocation: internvl2_76b alone is 70 B params
+        raise ValueError(
+            f"--arch {args.arch}: the {cfg.family} family needs the stubbed "
+            f"frontend's {FRONTEND_INPUTS[cfg.family]!r} embeddings in each "
+            f"batch, which the synthetic FL data does not carry (nor does "
+            f"the reference's); Model.loss runs it on a batch that has them")
     model = Model(cfg)
     fl = FLConfig(algorithm=args.algorithm, local_steps=args.local_steps,
                   local_lr=args.local_lr, uplink_compressor=args.compressor,

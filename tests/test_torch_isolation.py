@@ -53,8 +53,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_knobs_raise_naming_the_reference_module():
-    import dataclasses
-
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import Topology, make_round_engine
     from repro_torch.core.types import FLConfig
@@ -68,18 +66,16 @@ def test_unported_knobs_raise_naming_the_reference_module():
             (lambda: make_round_engine(model, fl, Topology(kind="star",
                                                            n_clients=2),
                                        device="cpu"), "repro.core.engine"),
-            (lambda: get_arch("deepseek_67b"),
-             "repro.configs.deepseek_67b"),
-            (lambda: Model(dataclasses.replace(get_arch("paper_lm"),
-                                               qkv_bias=True)),
-             "repro.models.layers"),
+            (lambda: model.init_cache(2, 16), "repro.models.model"),
+            (lambda: model.decode(None, None, None, 0),
+             "repro.models.model"),
             (lambda: make_round_engine(model, fl, Topology(kind="gossip",
                                                            n_clients=2),
                                        device="cpu"), "repro.core.engine")):
         with pytest.raises(NotImplementedError, match=module):
             call()
-    with pytest.raises(NotImplementedError, match="repro.configs"):
-        get_arch("mamba2_370m")
+    with pytest.raises(NotImplementedError, match="repro.models.model"):
+        Model(get_arch("mamba2_370m")).prefill(None, None)
 
 
 class _FakeCuda:

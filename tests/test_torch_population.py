@@ -436,13 +436,21 @@ def test_cli_population_on_cpu(capsys):
     assert state.comm_state["client"].tolist()[:2] != [-1, -1]
 
 
-@pytest.mark.parametrize("flags", [["--arch", "mamba2_370m"],
-                                   ["--arch", "whisper_base"],
-                                   ["--arch", "deepseek_67b"]])
+# --arch values the CLI's FL round cannot run -> (error, message): the
+# frontend families (the synthetic FL data carries no frontend
+# embeddings, the reference's neither) and an unknown id
+CLI_REJECTS = {"whisper_base": (ValueError, "'frontend' embeddings"),
+               "internvl2_76b": (ValueError, "'patches' embeddings"),
+               "no_such_arch": (KeyError, "unknown arch")}
+
+
+@pytest.mark.parametrize("flags", [["--arch", a] for a in CLI_REJECTS])
 def test_cli_rejects_unported_flags(flags):
-    """The reference's archs that the port does not build yet raise."""
+    """Every reference arch is built (slice 10); the CLI refuses, before
+    allocating anything, the archs whose batches it cannot make."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="not ported"):
+    error, match = CLI_REJECTS[flags[1]]
+    with pytest.raises(error, match=match):
         train.main(["--device", "cpu"] + flags)
 
 
