@@ -205,13 +205,36 @@ line is printed):
      terms and a peak memory under 76 GiB, and print the peak, the round
      times, the last round's busy share under ``torch.profiler`` and the
      launches of #1 and #3 beside the card's name and power limit;
-  14. the ``kernels`` JSON line: launch counts are those of the main-path
+  14. serving on the card: for every text-only arch's ``SMOKE`` config
+     and ``whisper_base``'s (its ``enc`` cache filled by
+     ``encode_cross_kv``), decode token by token equals the port's own
+     forward logits within 5e-3; a window-4 ring buffer within 2e-3 (its
+     slot positions checked), the int8 KV cache within 0.05; Jamba's
+     ``SMOKE`` loss and gradients bit-identical with remat on and off;
+     then ``serve.main`` on paper_lm (batch 4, prompt 16, 32 steps, cache
+     128) prints its telemetry;
+  14b. serving at full width: llama3_2_1b uncut decoding 64 steps at
+     ``decode_32k``'s 32,768-slot cache, batch 8 (the shape's 128 would
+     hold 128 GiB of bf16 KV), with the bf16 and the int8 cache (mean
+     and p95 ms a step, tokens/s, the cache's bytes, the bytes a step
+     moves and their floor at 3.35 TB/s, peak memory, one step under the
+     profiler); ``long_500k``'s 8,192-slot ring buffer at batch 1 across
+     the wrap at 524,288, every slot's position checked; ``prefill_32k``'s
+     32,768 positions at batch 1 (of 32); ``mamba2_370m`` uncut, 64 steps
+     at batch 8.  Phases 14 and 14b launch none of the eight kernels;
+  14c. ``train_4k``: llama3_2_1b uncut at seq 4,096, batch 1 on each of 2
+     clients, 2 rounds of EF ``topk:0.05>>qsgd:4@fused`` through the
+     kernels with remat on (the config's), peak under 76 GiB, no round
+     under the profiler (its trace takes a minute to summarise); then what a
+     layer keeps for the backward with remat off, on a 1-layer cut, and
+     whether 16 such layers fit the card;
+  15. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
-     10b, 11, 12, 12b, 13, 13b, 13c), each counted from 0 just before its
-     phase (the count sketch's by path too, each of which must launch);
-     the pack and unpack kernels are on no path and count their phase-3
-     calls;
-  15. last line: ``{"ok": true, "device": {...}}``.
+     10b, 11, 12, 12b, 13, 13b, 13c, 14, 14b, 14c), each counted from 0
+     just before its phase (the count sketch's by path too, each of which
+     must launch); the pack and unpack kernels are on no path and count
+     their phase-3 calls;
+  16. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -404,6 +427,29 @@ FULL_SPEC = "topk:0.05>>qsgd:4@fused"
 # (phase, arch, layers kept (None: all), clients, seq, batch, rounds)
 FULL_RUNS = (("13b", "mamba2_370m", None, 2, 256, 1, 2),
              ("13c", "qwen3_moe_30b_a3b", 1, 2, 128, 1, 2))
+# slice 11's serving: decode against the forward on every text-only arch's
+# SMOKE config and whisper_base's (its encoder's keys and values in the
+# cache), at the reference's limits (tests/test_models.py:77, :111, :220);
+# a capacity factor no token overflows, so that a MoE routes the forward's
+# tokens as it routes the decode's one (the reference's test configs' 8.0)
+SERVE_ARCHS = ("paper_lm", "llama3_2_1b") + FAMILY_ARCHS + ("whisper_base",)
+SERVE_SEQ, SERVE_BATCH, SERVE_CAPACITY = 16, 2, 8.0
+DECODE_TOL, RING_TOL, INT8_TOL = 5e-3, 2e-3, 0.05
+RING_ARCH, RING_WINDOW = "llama3_2_1b", 4
+REMAT_ARCH = "jamba_1_5_large_398b"       # Mamba, attention and MoE
+SERVE_CLI = ["--batch", "4", "--prompt-len", "16", "--steps", "32",
+             "--cache-len", "128"]
+# phase 14b at full width: decode_32k's cache at batch 8 of its 128 (128 x
+# 32,768 tokens x 32 KiB of bf16 KV a token is 128 GiB, over one card's
+# 80 GB), long_500k's ring buffer at its batch 1, prefill_32k at batch 1
+# of its 32
+FULL_DECODE_BATCH, FULL_DECODE_STEPS = 8, 64
+RING_STEPS_BEFORE_WRAP = 32
+PREFILL_BATCH = 1
+# phase 14c: train_4k's sequence, batch 1 on each of 2 clients (the
+# shape's global batch is 256), attention and cross-entropy in chunks of
+# 512 (the round engine's default, the reference dry-run's)
+TRAIN4K_CLIENTS, TRAIN4K_BATCH, TRAIN4K_CHUNK, TRAIN4K_ROUNDS = 2, 1, 512, 2
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -860,12 +906,14 @@ def cat_metrics(a, b):
 
 
 def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
-            local_steps, local_lr, peak_log=None, prof_out=None, times=None):
+            local_steps, local_lr, peak_log=None, prof_out=None, times=None,
+            chunk=None):
     """``rounds`` sim rounds; with a ``prof_out`` dict the last round runs
     under ``torch.profiler`` (a whole run's trace takes longer to
     summarise than the run) and ``prof_out`` gets the profiler and the
     round's wall time; a ``times`` list gets every round's wall time, each
-    round synchronised with the card."""
+    round synchronised with the card.  The model's attention and
+    cross-entropy chunk is ``chunk`` (default ``seq``, the train CLI's)."""
     from repro_torch.core.engine import run_rounds
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
@@ -873,7 +921,7 @@ def run_sim(model, fl_kw, backend, clients, seq, batch, rounds, dev,
 
     fl = FLConfig(backend=backend, local_steps=local_steps,
                   local_lr=local_lr, **fl_kw)
-    sim = make_sim_step(model, fl, clients, chunk=seq, device=dev)
+    sim = make_sim_step(model, fl, clients, chunk=chunk or seq, device=dev)
     if peak_log is not None:
         watch_peak(sim.engine.round_fn, peak_log)
     data = fed_data(model, clients, seq, batch)
@@ -1015,20 +1063,22 @@ def llama_phase(dev, fl_kw, expect, what):
 
 
 def wide_phase(dev, model, fl_kw, expect, what, clients, seq, batch, rounds,
-               inspect=None):
+               inspect=None, chunk=None, profile=True):
     """A full-width model's sim rounds through the kernels, E=1 at lr 0.05,
-    the last round under ``torch.profiler``: finite losses and params, the
-    ledger equal to its static terms, the kernels of ``expect`` launched
-    and no other, the peak memory under LLAMA_PEAK_GIB.  Prints the round
-    times, the peak and the last round's busy share; ``inspect(params)``
-    (optional) then reads the final params."""
+    the last round under ``torch.profiler`` (unless ``profile`` is False:
+    summarising a long round's trace takes a minute): finite losses and
+    params, the ledger equal to its static terms, the kernels of
+    ``expect`` launched and no other, the peak memory under
+    LLAMA_PEAK_GIB.  Prints the round times, the peak and the last round's
+    busy share; ``inspect(params)`` (optional) then reads the final
+    params."""
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()
     t0 = time.perf_counter()
-    peak_log, prof, times = {}, {}, []
+    peak_log, prof, times = {}, {} if profile else None, []
     sim, state, ms = run_sim(model, fl_kw, "kernel", clients, seq, batch,
                              rounds, dev, 1, 0.05, peak_log=peak_log,
-                             prof_out=prof, times=times)
+                             prof_out=prof, times=times, chunk=chunk)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     check_launches(ran, expect, what)
@@ -1039,14 +1089,16 @@ def wide_phase(dev, model, fl_kw, expect, what, clients, seq, batch, rounds,
         fail(f"{what}: peak memory {peak:.1f} GiB, not under "
              f"{LLAMA_PEAK_GIB} GiB")
     print(f"{what}: loss per round {fmt(losses)}, round times "
-          f"{', '.join(f'{t:.3f}' for t in times)} s (the last under the "
-          f"profiler), up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
+          f"{', '.join(f'{t:.3f}' for t in times)} s"
+          f"{' (the last under the profiler)' if profile else ''}, "
+          f"up={float(ms['ledger'].uplink_wire[0]):,.0f} B/round "
           f"down={float(ms['ledger'].downlink_wire[0]):,.0f} B/round, "
           f"ledger == static terms, launches {ran}, peak memory {peak:.2f} "
           f"GiB (limit {LLAMA_PEAK_GIB:.0f}; last raised in the "
           f"{peak_log.get('hop', 'init')} hop) on {card_line()}, "
           f"{secs:.2f}s", flush=True)
-    print_profile(prof["prof"], prof["secs"], f"{what}, last round")
+    if profile:
+        print_profile(prof["prof"], prof["secs"], f"{what}, last round")
     if inspect is not None:
         inspect(state.params)
     del sim, state, ms
@@ -3200,6 +3252,396 @@ def whisper_full(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 14-14c: serving, long sequences and remat
+# ---------------------------------------------------------------------------
+
+def text_batch(cfg, seq, batch, device, seed=0):
+    """A seeded text batch (and the stubbed frontend's frames for an
+    encoder-decoder)."""
+    if cfg.family == "encdec":
+        return frontend_batch(cfg, seq, batch, device, seed)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=device)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1),
+            "mask": torch.ones((batch, seq), device=device)}
+
+
+def decode_error(model, params, batch, cache, window=0):
+    """Decodes ``batch``'s tokens one by one from ``cache`` (a Python int
+    position); the largest |decode logits - forward logits| over the
+    steps, and the cache."""
+    from repro_torch.models import model as MM
+
+    cfg = model.cfg
+    with torch.no_grad():
+        x, _ = MM.forward(params, batch, cfg, chunk=8)
+        full = MM.unembed(params, x, cfg)
+    err = 0.0
+    for t in range(batch["tokens"].shape[1]):
+        logits, cache = model.decode(params, cache,
+                                     batch["tokens"][:, t:t + 1], t,
+                                     window=window)
+        err = max(err, float((logits[:, 0] - full[:, t]).abs().max()))
+    return err, cache
+
+
+def serve_parity_phase(dev):
+    """Phase 14: decode equals the forward on the card (every text-only
+    SMOKE arch and whisper_base's with its ``enc`` cache filled), the
+    window-4 ring buffer, the int8 cache, remat on against off bit for
+    bit, then ``serve.main`` on paper_lm."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MM
+    from repro_torch.models.model import Model
+
+    for arch in SERVE_ARCHS:
+        cfg = get_smoke(arch)
+        if cfg.num_experts:
+            cfg = dataclasses.replace(cfg,
+                                      expert_capacity_factor=SERVE_CAPACITY)
+        model = Model(cfg)
+        params = model.init(0, dev)
+        batch = text_batch(cfg, SERVE_SEQ, SERVE_BATCH, dev)
+        enc_len = cfg.frontend_tokens if cfg.family == "encdec" else 0
+        cache = model.init_cache(SERVE_BATCH, SERVE_SEQ, enc_len=enc_len,
+                                 device=dev)
+        if enc_len:
+            MM.encode_cache(params, cache, batch["frontend"], cfg)
+        t0 = time.perf_counter()
+        err, _ = decode_error(model, params, batch, cache)
+        secs = time.perf_counter() - t0
+        if not err < DECODE_TOL:
+            fail(f"{arch} SMOKE: decode differs from the forward by {err}")
+        print(f"{arch} SMOKE ({cfg.family}, pattern {cfg.block_pattern}, "
+              f"{cfg.dtype}): {SERVE_SEQ} decode steps at batch "
+              f"{SERVE_BATCH} == forward logits within {err:.3g} (limit "
+              f"{DECODE_TOL}){' with the enc cache filled' if enc_len else ''}"
+              f"; {secs:.2f}s", flush=True)
+
+    cfg = dataclasses.replace(get_smoke(RING_ARCH),
+                              sliding_window=RING_WINDOW)
+    model = Model(cfg)
+    params = model.init(0, dev)
+    batch = text_batch(cfg, SERVE_SEQ, SERVE_BATCH, dev)
+    cache = model.init_cache(SERVE_BATCH, RING_WINDOW, device=dev)
+    err, cache = decode_error(model, params, batch, cache,
+                              window=RING_WINDOW)
+    want = torch.arange(SERVE_SEQ - RING_WINDOW, SERVE_SEQ, device=dev)
+    want = want[(want % RING_WINDOW).argsort()].to(torch.int32)
+    spos = cache["b0.kv.slot_pos"]
+    if not err < RING_TOL or not torch.equal(spos, want.expand_as(spos)):
+        fail(f"{RING_ARCH} SMOKE ring buffer: error {err}, slot positions "
+             f"{spos.tolist()}")
+    print(f"{RING_ARCH} SMOKE, sliding window {RING_WINDOW}: a "
+          f"{RING_WINDOW}-slot ring buffer decodes {SERVE_SEQ} steps == "
+          f"forward within {err:.3g} (limit {RING_TOL}), slot positions "
+          f"{want.tolist()}", flush=True)
+
+    model = Model(get_smoke(RING_ARCH))
+    params = model.init(0, dev)
+    batch = text_batch(model.cfg, SERVE_SEQ, SERVE_BATCH, dev)
+    cache = model.init_cache(SERVE_BATCH, SERVE_SEQ, quantized=True,
+                             device=dev)
+    err, _ = decode_error(model, params, batch, cache)
+    if not err < INT8_TOL:
+        fail(f"{RING_ARCH} SMOKE int8 cache: {err} from the forward")
+    print(f"{RING_ARCH} SMOKE int8 KV cache: decode within {err:.4f} of "
+          f"the exact forward (limit {INT8_TOL})", flush=True)
+
+    cfg = get_smoke(REMAT_ARCH)
+    batch = text_batch(cfg, SERVE_SEQ, SERVE_BATCH, dev)
+    params = Model(cfg).init(0, dev)
+    runs = [loss_and_grads(Model(dataclasses.replace(cfg, remat=r)), params,
+                           batch) for r in (False, True)]
+    (loss0, _, g0), (loss1, _, g1) = runs
+    if not torch.equal(loss0, loss1) or not all(
+            torch.equal(a, b) for a, b in zip(g0, g1)):
+        fail(f"{REMAT_ARCH} SMOKE: remat changes the loss or a gradient")
+    print(f"{REMAT_ARCH} SMOKE: remat on == off bit for bit (loss "
+          f"{float(loss0):.6f} and {len(g0)} gradients)", flush=True)
+
+    print(f"serve.main {' '.join(SERVE_CLI)} (paper_lm, on the card):",
+          flush=True)
+    seqs = serve.main(SERVE_CLI)
+    if tuple(seqs.shape) != (4, 48):
+        fail(f"serve.main served {tuple(seqs.shape)}")
+    print(f"serve on {card_line()}", flush=True)
+    no_kernel_launches("phase 14")
+
+
+def no_kernel_launches(what):
+    ran = launch_counts()
+    check_launches(ran, (), what)
+    print(f"{what}: kernel launches {ran} (serving runs none of the "
+          f"eight)", flush=True)
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def decode_floor_bytes(params, cache):
+    """The bytes one decode step must move as the port computes it: every
+    weight read once, every cache leaf read once, and each K / V cache
+    leaf's f32 (B, KV, W, hd) copy written and read once."""
+    total = nbytes(params.values()) + nbytes(cache.values())
+    for name, t in cache.items():
+        if name.endswith(("kv.k", "kv.v")):
+            total += 2 * 4 * t.numel()
+    return total
+
+
+def timed_decode(model, params, cache, tok, pos0, steps, window=0):
+    """``steps`` greedy decode steps from ``pos0``, each synchronised;
+    returns (step seconds, the first step's logits, the last's)."""
+    times, first = [], None
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, cache, tok, pos0 + t,
+                                     window=window)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if first is None:
+            first = logits.clone()
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+    if not bool(torch.isfinite(logits).all()):
+        fail("decode: non-finite logits")
+    return times, first, logits
+
+
+def step_line(times, batch):
+    """Mean and p95 of the warm steps (the first is set-up, as in
+    ``serve``) and tokens/s."""
+    from repro_torch.launch.serve import _stats
+
+    mean, p95 = _stats(times[1:])
+    return (f"first step {times[0] * 1e3:.2f} ms, then {len(times) - 1} "
+            f"steps mean {mean * 1e3:.3f} ms p95 {p95 * 1e3:.3f} ms, "
+            f"{batch / mean:,.1f} tokens/s"), mean
+
+
+def profile_step(model, params, cache, tok, pos, what, window=0):
+    """One decode step under ``torch.profiler``: the device's busy share
+    and device time by operator."""
+    prof = profiled_if(True)
+    prof.start()
+    t0 = time.perf_counter()
+    model.decode(params, cache, tok, pos, window=window)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    prof.stop()
+    print_profile(prof, secs, what, top=8)
+
+
+def serve_full_phase(dev):
+    """Phase 14b: llama3_2_1b uncut decoding at decode_32k's cache
+    length (bf16 and int8 caches), long_500k's ring buffer across the
+    wrap, mamba2_370m uncut, and prefill_32k's prefill."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import SHAPES, decode_cache_len, \
+        decode_window
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    model = Model(cfg)
+    params = model.init(0, dev)
+    shape = SHAPES["decode_32k"]
+    W, window = decode_cache_len(cfg, shape), decode_window(cfg, shape)
+    B, steps = FULL_DECODE_BATCH, FULL_DECODE_STEPS
+    pos0 = W - steps
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    # a cache holding positions 0 .. pos0 - 1: random keys and values, and
+    # the int8 cache their quantization
+    caches = {False: model.init_cache(B, W, device=dev),
+              True: model.init_cache(B, W, quantized=True, device=dev)}
+    for name, t in caches[False].items():
+        if name.endswith("slot_pos"):
+            t[:, :pos0] = torch.arange(pos0, device=dev, dtype=torch.int32)
+            caches[True][name].copy_(t)
+        else:
+            t.normal_(generator=g)
+            for i in range(t.shape[0]):
+                q, sc = L._quantize_kv(t[i])
+                caches[True][name][i].copy_(q)
+                caches[True][name + "scale"][i].copy_(sc)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev)
+    print(f"llama3_2_1b decode ({shape.name}): {model.param_count():,} "
+          f"params, {cfg.num_layers} layers (no depth cut), {cfg.dtype}; "
+          f"batch {B} (the shape's {shape.global_batch} would hold "
+          f"{shape.global_batch * W * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2 / 2**30:.0f} GiB of bf16 KV), cache {W} slots holding positions "
+          f"0..{pos0 - 1}, window {window}, {steps} greedy steps from "
+          f"position {pos0}", flush=True)
+    first = {}
+    for quantized in (False, True):
+        cache = caches[quantized]
+        kind = "int8" if quantized else "bf16"
+        what = f"llama3_2_1b decode_32k {kind} cache"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        floor = decode_floor_bytes(params, cache)
+        times, first[quantized], _ = timed_decode(model, params, cache, tok,
+                                                  pos0, steps, window)
+        line, mean = step_line(times, B)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"{what}: {line}; cache {nbytes(cache.values()) / 2**30:.3f} "
+              f"GiB, weights {nbytes(params.values()) / 1e9:.3f} GB, bytes "
+              f"a step as computed {floor / 1e9:.2f} GB, floor "
+              f"{floor / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s "
+              f"({100 * floor / HBM_BYTES_PER_S / mean:.1f}% of it "
+              f"reached); peak memory {peak:.2f} GiB on {card_line()}",
+              flush=True)
+        profile_step(model, params, cache, tok, W - 1, f"{what}, one step",
+                     window)
+    diff = (first[True] - first[False]).float()
+    agree = float((first[True].argmax(-1) == first[False].argmax(-1))
+                  .float().mean())
+    print(f"llama3_2_1b decode_32k: the first step's logits, int8 cache "
+          f"against bf16: max abs diff {float(diff.abs().max()):.4f} (the "
+          f"logits' max abs {float(first[False].abs().max()):.3f}), argmax "
+          f"equal for {100 * agree:.0f}% of the batch", flush=True)
+    del caches, first
+    torch.cuda.empty_cache()
+
+    # long_500k: the window's ring buffer at batch 1 across the wrap
+    shape = SHAPES["long_500k"]
+    W, window = decode_cache_len(cfg, shape), decode_window(cfg, shape)
+    pos0 = shape.seq_len - RING_STEPS_BEFORE_WRAP
+    cache = model.init_cache(1, W, device=dev)
+    prev = torch.arange(pos0 - W, pos0, device=dev)
+    for name, t in cache.items():
+        if name.endswith("slot_pos"):
+            t[:, prev % W] = prev.to(torch.int32)
+        else:
+            t.normal_(generator=g)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, _, _ = timed_decode(model, params, cache, tok[:1], pos0, steps,
+                               window)
+    last = pos0 + steps - 1
+    slots = torch.arange(W, device=dev)
+    want = (last - (last - slots) % W).to(torch.int32)
+    spos = cache["b0.kv.slot_pos"]
+    if not torch.equal(spos, want.expand_as(spos)):
+        fail(f"long_500k ring buffer: slot positions differ from the "
+             f"expected ({int((spos != want).sum())} slots)")
+    line, _ = step_line(times, 1)
+    print(f"llama3_2_1b {shape.name}: ring buffer of {W} slots, window "
+          f"{window}, batch 1, {steps} steps from position {pos0} across "
+          f"the wrap at {shape.seq_len} (slot 0); every slot's position "
+          f"checked after the last step ({int(want.min())}..{last}); "
+          f"{line}; cache {nbytes(cache.values()) / 2**30:.3f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    del cache
+
+    # prefill_32k at batch 1
+    shape = SHAPES["prefill_32k"]
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, shape.seq_len),
+                           generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"prefill_32k: logits {tuple(logits.shape)} not finite")
+    print(f"llama3_2_1b {shape.name}: prefill of {shape.seq_len} positions "
+          f"at batch {PREFILL_BATCH} (the shape's {shape.global_batch}) in "
+          f"{secs:.2f} s ({PREFILL_BATCH * shape.seq_len / secs:,.0f} "
+          f"tokens/s), attention in 512 x 512 tiles, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on "
+          f"{card_line()}", flush=True)
+    del params, logits
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("mamba2_370m")
+    model = Model(cfg)
+    params = model.init(0, dev)
+    cache = model.init_cache(FULL_DECODE_BATCH, 1, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (FULL_DECODE_BATCH, 1),
+                        generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, _, _ = timed_decode(model, params, cache, tok, 0, steps)
+    line, _ = step_line(times, FULL_DECODE_BATCH)
+    print(f"mamba2_370m decode: {model.param_count():,} params, "
+          f"{cfg.num_layers} layers (no cut), batch {FULL_DECODE_BATCH}, "
+          f"{steps} steps; {line}; state and conv cache "
+          f"{nbytes(cache.values()) / 2**20:.1f} MiB, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on "
+          f"{card_line()}", flush=True)
+    profile_step(model, params, cache, tok, steps, "mamba2_370m decode, "
+                 "one step")
+    del params, cache
+    torch.cuda.empty_cache()
+    no_kernel_launches("phase 14b")
+
+
+def train_4k_phase(dev):
+    """Phase 14c: llama3_2_1b uncut at train_4k's sequence through the
+    kernels with remat (the config's default), the peak under 76 GiB;
+    then what remat off would keep for the backward."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import model as MM
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    shape = SHAPES["train_4k"]
+    model = Model(cfg)
+    what = (f"llama3_2_1b {shape.name} (remat {cfg.remat}, seq "
+            f"{shape.seq_len}, batch {TRAIN4K_BATCH} on each of "
+            f"{TRAIN4K_CLIENTS} clients of the shape's "
+            f"{shape.global_batch}, chunk {TRAIN4K_CHUNK})")
+    print(f"{what}: {TRAIN4K_ROUNDS} rounds of EF {FULL_SPEC} "
+          f"backend=kernel", flush=True)
+    wide_phase(dev, model, dict(uplink_compressor=FULL_SPEC),
+               fused_chain_kernels(model), what, TRAIN4K_CLIENTS,
+               shape.seq_len, TRAIN4K_BATCH, TRAIN4K_ROUNDS,
+               chunk=TRAIN4K_CHUNK, profile=False)
+
+    # remat off: what a layer keeps for the backward, measured on the
+    # model cut to one layer (a whole run near the card's limit spends
+    # minutes in the allocator before it fails)
+    kept = {}
+    batch = text_batch(cfg, shape.seq_len, TRAIN4K_BATCH, dev)
+    for remat in (False, True):
+        one = dataclasses.replace(cfg, num_layers=1, remat=remat)
+        params = {k: v.requires_grad_(True)
+                  for k, v in Model(one).init(0, dev).items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        x, _ = MM.forward(params, batch, one, chunk=TRAIN4K_CHUNK)
+        torch.cuda.synchronize()
+        kept[remat] = (torch.cuda.memory_allocated(dev) - base) / 2**30
+        del params, x
+        torch.cuda.empty_cache()
+    # a lower bound of the local update's need: the saved activations,
+    # the params and their gradients (the state and the wire come on top)
+    weights = 2 * model.param_count() * cfg.dtype.itemsize / 2**30
+    need = cfg.num_layers * kept[False] + weights
+    card = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    print(f"llama3_2_1b {shape.name} remat off: a layer keeps "
+          f"{kept[False]:.3f} GiB for the backward (remat on: "
+          f"{kept[True]:.3f} GiB, the layer's input), measured on a "
+          f"1-layer cut; {cfg.num_layers} layers with the params and their "
+          f"gradients ({weights:.2f} GiB) need at least {need:.1f} GiB, "
+          f"{'more' if need > card else 'less'} than the card's "
+          f"{card:.1f} GiB: the run "
+          f"{'does not fit, and is not run' if need > card else 'may fit'}"
+          f"; on {card_line()}", flush=True)
+
+
 def fused_chain_kernels(model, fraction=0.05, block=2048):
     """The kernels the kernel backend runs for EF ``topk:<fraction>>>
     qsgd:4@fused``: #1 on every leaf, #3 on each carrier whose adapted
@@ -3445,7 +3887,8 @@ def main():
                   privacy_phase, llama_privacy_phase, scenario_phase,
                   telemetry_phase, llama_telemetry_phase, families_phase,
                   lambda d: full_width_phase(d, "13b"),
-                  lambda d: full_width_phase(d, "13c")):
+                  lambda d: full_width_phase(d, "13c"),
+                  serve_parity_phase, serve_full_phase, train_4k_phase):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -19,10 +19,12 @@ under error feedback or DGC, and an LFL downlink, on every arch of
 ``configs/`` (dense, MoE, Mamba-2, the Jamba hybrid, Whisper's
 encoder-decoder and the VLM prefix).  ``obs/`` is the flight recorder (``RoundStats``
 telemetry, the JSONL tracer, its report) and ``checkpoint/`` saves params
-in the reference's npz format.  The compression kernels are hand-written
+in the reference's npz format.  Serving decodes from KV (bf16 or int8)
+and SSM caches (``models/``, ``launch/serve.py``); ``configs/shapes.py``
+holds the reference's input shapes and ``optim/`` its SGD and AdamW.  The compression kernels are hand-written
 CUDA for ``sm_90a`` (``kernels/csrc``); on a CPU tensor each wrapper runs
 its plain PyTorch version instead.  Knobs of ``repro`` that the port does
-not run (the mesh topologies, the decode path) raise
+not run (the mesh topologies) raise
 ``NotImplementedError`` naming the JAX module that has them.
 """
 from repro_torch.device import resolve_device

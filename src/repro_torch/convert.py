@@ -11,7 +11,10 @@ accumulators, the warm-up round counter) across: it fills the port's state
 structure with the reference's arrays, given in ``jax.tree.leaves`` order
 (tuples in order, dict keys sorted).  ``hash_params_from_jax`` takes the
 reference's count-sketch hash parameters (uint32 arrays) in the port's
-int64 form.  ``store_from_jax`` / ``store_to_jax`` carry a
+int64 form.  ``cache_from_jax`` / ``cache_to_jax`` carry a decode cache (the
+reference's ``init_cache`` pytree, int8 codes and ``slot_pos`` included)
+into the port's flat layout and back, as the params cross.
+``store_from_jax`` / ``store_to_jax`` carry a
 ``ResidualStore`` state (slab, client, stamp, clock and the sketch tail;
 any dict / tuple pytree of arrays) across unchanged in structure.
 ``algorithm_state_from_jax`` / ``algorithm_state_to_jax`` carry the
@@ -76,6 +79,19 @@ def params_to_jax(params: dict) -> dict:
             node = node.setdefault(h, {})
         node[last] = _to_numpy(t)
     return out
+
+
+def cache_from_jax(tree, device="cpu") -> dict:
+    """The reference's decode cache (nested dicts of numpy arrays, leaves
+    stacked over superblocks) as the port's flat ``{dotted path: Tensor}``
+    (``repro_torch.models.model.init_cache``'s layout)."""
+    return params_from_jax(tree, device)
+
+
+def cache_to_jax(cache: dict) -> dict:
+    """The port's decode cache as the reference's nested dicts of numpy
+    arrays (the inverse of :func:`cache_from_jax`)."""
+    return params_to_jax(cache)
 
 
 def state_from_jax(template, leaves, device="cpu"):

@@ -3,6 +3,7 @@
 ``ArchConfig`` keeps the field names and defaults of the JAX reference so
 configs read the same; ``repro_torch.models`` builds every family of them
 (dense, moe, ssm, hybrid, encdec, vlm).  ``dtype`` is a ``torch.dtype``.
+``ShapeConfig`` is the reference's input shape.
 ``FLConfig`` is a verbatim copy of the reference's fields and defaults:
 knobs this slice does not run are rejected where the engine reads them.
 """
@@ -113,6 +114,19 @@ class ArchConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape (the reference's ``ShapeConfig``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                         # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
 
 
 @dataclasses.dataclass(frozen=True)

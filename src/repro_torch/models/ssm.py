@@ -5,7 +5,8 @@ The chunked SSD form: intra-chunk terms are dense (L x L) products, and the
 inter-chunk recurrence is a loop over the S / L chunks (the reference's
 ``lax.scan``).  Shapes: x (B, S, D); internal x~ (B, S, H, P) with
 H = d_inner / P heads, B~ / C~ (B, S, G, N) with G = 1 group, state
-N = ``cfg.ssm_state``.
+N = ``cfg.ssm_state``.  Decoding keeps a constant-size state per layer
+(``mamba_cache_defs``, ``mamba_decode``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ArchConfig
-from repro_torch.models.layers import ParamDef, rmsnorm
+from repro_torch.models.layers import CacheDef, ParamDef, rmsnorm
 
 
 def ssm_dims(cfg: ArchConfig):
@@ -150,3 +151,44 @@ def mamba_block(p, x, cfg: ArchConfig):
     y = y.reshape(B_, S, -1)
     y = rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
     return x + y @ p["out_proj"]
+
+
+# --- decode -----------------------------------------------------------------
+
+def mamba_cache_defs(cfg: ArchConfig, batch):
+    """The SSM state (B, H, N, P) in f32 and the causal conv's window of
+    the last ``ssm_conv_width - 1`` inputs (B, W - 1, conv_dim)."""
+    d_inner, H, P, N, G, conv_dim, _ = ssm_dims(cfg)
+    return {
+        "state": CacheDef((batch, H, N, P), torch.float32),
+        "conv": CacheDef((batch, cfg.ssm_conv_width - 1, conv_dim),
+                         cfg.dtype),
+    }
+
+
+def mamba_decode(p, x, cfg: ArchConfig, cache):
+    """x: (B, 1, D), one token.  The conv window and the state advance by
+    one step, in place in ``cache``; B~ and C~ are read from group 0, as in
+    the reference.  Returns (x + out, cache)."""
+    B_ = x.shape[0]
+    d_inner, H, P, N, G, conv_dim, _ = ssm_dims(cfg)
+    f32 = torch.float32
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    z, xBC, dt_raw = _split_proj(h @ p["in_proj"], cfg)
+    win = torch.cat([cache["conv"], xBC.to(cache["conv"].dtype)], dim=1)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", win, p["conv_w"])
+                      + p["conv_b"])[:, None]
+    cache["conv"].copy_(win[:, 1:])
+    xs, Bm, Cm = _split_xbc(conv_out, cfg)
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))
+    dA = torch.exp(dt[:, 0] * A)                                # (B,H)
+    xb = torch.einsum("bn,bhp->bhnp", Bm[:, 0, 0].to(f32),
+                      dt[:, 0, :, None] * xs[:, 0].to(f32))
+    state = cache["state"] * dA[..., None, None] + xb
+    cache["state"].copy_(state)
+    y = torch.einsum("bn,bhnp->bhp", Cm[:, 0, 0].to(f32), state)
+    y = y + p["D"].to(f32)[None, :, None] * xs[:, 0].to(f32)
+    y = y.reshape(B_, 1, d_inner).to(x.dtype)
+    y = rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
+    return x + y @ p["out_proj"], cache

@@ -18,6 +18,8 @@ def test_port_imports_no_jax_and_no_reference():
     code = (
         "import pkgutil, sys, importlib\n"
         "import repro_torch, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve, repro_torch.configs.shapes\n"
+        "import repro_torch.optim.sgd, repro_torch.optim.adamw\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
@@ -38,14 +40,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch.core.simulate import make_sim_step
     from repro_torch.core.types import FLConfig
     from repro_torch.data.synthetic import FedDataConfig, sample_round
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
     fl = FLConfig(uplink_compressor="topk:0.05>>qsgd:8", backend="kernel")
     for call in (lambda: make_sim_step(model, fl, 2),
                  lambda: model.init(0),
                  lambda: sample_round(FedDataConfig(256, 2, 8, 1), 0),
-                 lambda: train.main(["--rounds", "1"])):
+                 lambda: train.main(["--rounds", "1"]),
+                 lambda: model.init_cache(2, 16),
+                 lambda: serve.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     sim = make_sim_step(model, fl, 2, device="cpu")
@@ -66,16 +70,11 @@ def test_unported_knobs_raise_naming_the_reference_module():
             (lambda: make_round_engine(model, fl, Topology(kind="star",
                                                            n_clients=2),
                                        device="cpu"), "repro.core.engine"),
-            (lambda: model.init_cache(2, 16), "repro.models.model"),
-            (lambda: model.decode(None, None, None, 0),
-             "repro.models.model"),
             (lambda: make_round_engine(model, fl, Topology(kind="gossip",
                                                            n_clients=2),
                                        device="cpu"), "repro.core.engine")):
         with pytest.raises(NotImplementedError, match=module):
             call()
-    with pytest.raises(NotImplementedError, match="repro.models.model"):
-        Model(get_arch("mamba2_370m")).prefill(None, None)
 
 
 class _FakeCuda:
