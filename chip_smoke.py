@@ -27,7 +27,7 @@ line is printed):
      view, 10 rows (two row groups) and rows of 70,000 columns (column
      tiles), and its grid rule is timed both ways (one CTA per paper_lm
      leaf, or a CTA per 4096 elements);
-  4. slice 1's path: paper_lm at full width, 8 clients, 3 sim rounds of
+  4. slice 1's path: paper_lm at full width, 8 clients, 2 sim rounds of
      EF ``topk:0.05>>qsgd:8`` and ``topk:0.05>>qsgd:4@fused``, each with
      ``backend="kernel"`` and with the plain backend on the card — params,
      EF residuals and ledgers must be bit-identical between the two;
@@ -36,7 +36,7 @@ line is printed):
      EF ``topk:0.1>>ternary@fused`` and DGC ``topk`` (0.01, momentum 0.9).
      First, outside the counted phases, round 1 from one state gives
      identical codes, supports, downlinked params and ledger on both
-     backends, mu within rtol 1e-5 (DGC: identical rows); then 3
+     backends, mu within rtol 1e-5 (DGC: identical rows); then 2
      free-running rounds of each, whose losses are printed with their
      largest relative gap (DGC: bit-identical runs);
   4c. slice 3's path: paper_lm at full width, 8 clients, E=2, lr 0.1, on
@@ -45,7 +45,7 @@ line is printed):
      counted phases, round 1 from one state gives identical deltas,
      losses and ledger on both backends and every client's sketch within
      phase 3's tolerance, and prints the overlap of the decoded supports;
-     then 3 free-running rounds of each, whose losses may differ by a
+     then 2 free-running rounds of each, whose losses may differ by a
      relative 1e-3 at most;
   4d. the kernel-less stages on paper_lm, one round each on the card's
      plain ops: EF ``sbc`` (0.01), ``randmask:0.05``, EF ``hsq`` and
@@ -56,8 +56,10 @@ line is printed):
   5b. the same of EF ``stc:0.1@fused`` with an ``lfl8`` downlink;
   5c. the same of EF ``sketch>>qsgd:8``.  Phases 5-5c need a finite loss
      and the ledger equal to its static terms, and print the peak memory.
-     The last round of each kernel run of phases 4-5c goes under
-     ``torch.profiler``, which prints the device's busy share and device
+     The last round of each kernel run of phases 4-5 goes under
+     ``torch.profiler`` (5b and 5c, like the other large models' phases,
+     run without it: summarising their traces took longer than the
+     rounds), which prints the device's busy share and device
      time by launching operator (the plain runs do not: nothing reads
      their profiles; a whole run's trace took longer to summarise than
      the run);
@@ -69,7 +71,7 @@ line is printed):
      engine committed, and the backends bit-identical in params, slab,
      client and stamp;
   6b. the eviction leg: paper_lm, 192 clients, cohorts of 24, a 32-slot
-     store under ``drop`` and under ``sketch`` (a 5 x 16384 tail), 6
+     store under ``drop`` and under ``sketch`` (a 5 x 16384 tail), 4
      rounds on both backends: the store's ``stats()`` equal to the hits,
      misses and evictions its slots show, the tail non-zero once round 1
      has evicted and its norm never rising across a gather, the backends
@@ -77,12 +79,14 @@ line is printed):
      tolerance) under ``sketch``;
   6c. llama3_2_1b at full width and depth over 1,000,000 clients, cohorts
      of 2, a 2-slot store under ``sketch``, EF ``topk:0.05>>qsgd:4@fused``,
-     3 rounds through the kernels: finite losses, every round after the
-     first evicting 2 rows and recovering 2, and the peak memory under
-     76 GiB.  Phases 6-6c print each run's round times; one kernel run
-     a phase (6: 1,000,000 clients, 6b: ``sketch``, 6c) profiles its last
-     round for the device busy share, top device ops and the store's
-     share of device time;
+     2 rounds through the kernels: finite losses, the second round
+     evicting 2 rows and recovering 2, and the peak memory under 76 GiB.
+     Phases 6-6c print each run's round times; one kernel run a phase (6:
+     1,000,000 clients, 6b: ``sketch``) profiles its last round for the
+     device busy share, top device ops and the store's share of device
+     time (6c's 10 s rounds, like 5c's 6 s ones, run without the
+     profiler: summarising such a round's trace took longer than the
+     round);
   7. slice 6's path, the survey's client and server algorithms: paper_lm,
      8 clients, seq 32, batch 2, E=2, 4 rounds with the held-out eval
      every 2 rounds (``run_rounds(..., metrics_fn=, eval_every=2)``), on
@@ -102,7 +106,7 @@ line is printed):
      static terms times the selected count, and a peak memory under 76
      GiB, printed beside the card's name and power limit.  Phases 7-7c
      print each run's round times, losses, eval losses and ``selected``;
-     one kernel run a phase (7: FedAdam) profiles its last round;
+     phase 7's FedAdam kernel run profiles its last round;
   8. slice 7's selection (the reference's ``bench_selection``): paper_lm,
      16 clients, 4 per round, E=2, lr 0.2, seq 32, batch 2, 3 rounds of
      ``random``, ``power_of_choice`` and ``multi_criteria`` on EF
@@ -116,18 +120,18 @@ line is printed):
      latency, K = 8, 2 generations) bit-identical to the sync run of the
      same config; FedBuff K = 4 under ``heavy_tail`` with FedAdam, FedAsync
      K = 1 under ``uniform`` and K = 8 with a deadline of the median
-     ``resource`` latency, 32 events each; then ``bench_scale``'s async leg
+     ``resource`` latency, 24 events each; then ``bench_scale``'s async leg
      (100,000 clients, stride cohorts of 16, a 64-slot store, K = 4,
-     ``heavy_tail``, 32 events).  Each run prints its event order, flush
+     ``heavy_tail``, 24 events).  Each run prints its event order, flush
      count and final clock; the backends are bit-identical in every state
      tensor and metric;
   9b. llama3_2_1b at full width and depth, async: 2 slots, FedAsync (K =
      1) under ``heavy_tail``, EF ``topk:0.05>>qsgd:4@fused``, seq 128,
      batch 1, E=1, 6 events through the kernels: finite losses, a flush
      every event, the peak memory under 76 GiB with the hop that last
-     raised it, each event's time and the last event's busy share;
+     raised it and each event's time;
   10. slice 8's privacy wire on paper_lm (8 clients, seq 32, batch 2,
-     E=2, 3 rounds): each of the reference's ``PRIVACY_CASES`` (``qsgd:4``,
+     E=2, 2 rounds): each of the reference's ``PRIVACY_CASES`` (``qsgd:4``,
      ``topk:0.05>>qsgd:4``, ``ternary@fused``, EF ``topk:0.05>>qsgd:8``,
      ``qsgd:2@fused``, each ``>>secagg``) equal to its clear run bit for
      bit on the kernel backend (params, EF rows with the mask context
@@ -159,10 +163,10 @@ line is printed):
      times and ``q_est``;
   12. slice 9's flight recorder on paper_lm, each configuration run with
      ``FLConfig.telemetry`` on and off on both backends: the dense sim (8
-     clients, 3 rounds, EF ``topk:0.05>>qsgd:4@fused``, a square trace at
+     clients, 2 rounds, EF ``topk:0.05>>qsgd:4@fused``, a square trace at
      duty 0.5, dropout 0.3, epoch scale 0.5 at E=4), 6b's population
      under ``drop`` and ``sketch`` (3 rounds), phase 9's FedBuff K = 4
-     ``heavy_tail`` run and its population leg over 100,000 clients (32
+     ``heavy_tail`` run and its population leg over 100,000 clients (24
      events each) and ``qsgd:4>>secagg``.  On against off, every tensor
      but the telemetry is bit-identical; the stage slots, summed one
      after another in f32, equal the ledger's wire totals every round;
@@ -203,8 +207,8 @@ line is printed):
      routed tokens dropped past an expert's capacity.  Phases 13b and 13c
      need finite losses and parameters, the ledger equal to its static
      terms and a peak memory under 76 GiB, and print the peak, the round
-     times, the last round's busy share under ``torch.profiler`` and the
-     launches of #1 and #3 beside the card's name and power limit;
+     times and the launches of #1 and #3 beside the card's name and power
+     limit (no round under the profiler);
   14. serving on the card: for every text-only arch's ``SMOKE`` config
      and ``whisper_base``'s (its ``enc`` cache filled by
      ``encode_cross_kv``), decode token by token equals the port's own
@@ -228,13 +232,50 @@ line is printed):
      under the profiler (its trace takes a minute to summarise); then what a
      layer keeps for the backward with remat off, on a 1-layer cut, and
      whether 16 such layers fit the card;
-  15. the ``kernels`` JSON line: launch counts are those of the main-path
+  15. slice 12's topologies over ``torch.distributed``, each client a rank
+     (``repro_torch.launch.mesh.run_ranks``, spawned after the kernels are
+     built; one card cannot hold two NCCL ranks of one communicator, so
+     the ranks share ``cuda:0`` over gloo, which stages each collective
+     through the host).  One group of 4 ranks runs 15, 15c and 15d, each
+     rank counting its kernel launches per phase from 0 and reporting
+     them to this process.  15: the star on paper_lm (phase 4's batch),
+     3 rounds on each backend of the identity FedSGD wire, EF
+     ``topk:0.05>>qsgd:4@fused``, ``ternary@fused``, SCAFFOLD on
+     ``qsgd:8`` and the EF chain ``>>secagg``: every rank's wire operands
+     its payload (``payload_nbytes``), the ranks' sum the ledger's
+     uplink (in its own float32 arithmetic; SCAFFOLD's billed twice,
+     its dense control f32 beside it), the packed wire uint8 with no int8
+     or f32 code plane, the staged QSGD wire int8, only the identity wire
+     an f32 all-reduce; the backends bit-identical (the ternary chain at
+     engine scope: its kernel sums mu in another order) and the masked
+     chain equal to the clear one;
+  15b. llama3_2_1b uncut, 2 ranks sharing the card over gloo, one client
+     each, 2 rounds of EF ``topk:0.05>>qsgd:4@fused`` through the
+     kernels: each rank's peak memory, round times, the share of each
+     round in the collective wrapper and the gathered bytes, beside the
+     card's name and power limit;
+  15c. hier at pod 2 x data 2 on paper_lm, ``qsgd:8`` on the edge and the
+     pod hop, the cloud hop every 2nd of 4 rounds, telemetry on:
+     ``pod_divergence`` 0 after cloud rounds, edge bytes equal to
+     ``edge_wire`` every round and each data index's pod group's bytes
+     to ``cloud_wire`` on cloud rounds, the telemetry pod slot 0 on edge
+     rounds and ``cloud_wire`` on cloud rounds, the backends
+     bit-identical;
+  15d. gossip on paper_lm, 4 ranks: the ring and ``expander_graph(4)``,
+     each on ``qsgd:8`` and EF ``topk:0.25>>qsgd:8``, 5 rounds from
+     per-node perturbed params: the consensus below 0.7x its first value,
+     the mix bytes ``mix_wire`` every round, the backends bit-identical;
+  15e. ``repro_torch.launch.train.main`` with ``--nproc 1 --dist-backend
+     nccl`` for the star and ``--hierarchical`` (pod 1 x data 1): the
+     NCCL path built and run on the card (its rank's launches stay in its
+     process);
+  16. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
-     10b, 11, 12, 12b, 13, 13b, 13c, 14, 14b, 14c), each counted from 0
-     just before its phase (the count sketch's by path too, each of which
-     must launch); the pack and unpack kernels are on no path and count
-     their phase-3 calls;
-  16. last line: ``{"ok": true, "device": {...}}``.
+     10b, 11, 12, 12b, 13, 13b, 13c, 14, 14b, 14c, 15, 15b, 15c, 15d),
+     each counted from 0 just before its phase (the count sketch's by
+     path too, each of which must launch); the pack and unpack kernels are
+     on no path and count their phase-3 calls;
+  17. last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -261,7 +302,7 @@ F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 # the 1.98 GHz boost clock that the f32 peak above also assumes
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-PAPER_LM_CLIENTS, PAPER_LM_SEQ, PAPER_LM_BATCH, PAPER_LM_ROUNDS = 8, 32, 2, 3
+PAPER_LM_CLIENTS, PAPER_LM_SEQ, PAPER_LM_BATCH, PAPER_LM_ROUNDS = 8, 32, 2, 2
 LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS = 2, 128, 1, 2
 LLAMA_W_UP = 268_435_456
 CHAINS = ("topk:0.05>>qsgd:8", "topk:0.05>>qsgd:4@fused")
@@ -304,9 +345,9 @@ POP_SIZES, POP_COHORT, POP_CAPACITY, POP_ROUNDS = (100_000, 1_000_000), 16, \
     64, 4
 POP_SEQ, POP_BATCH, POP_SPEC = 48, 4, "topk:0.05>>qsgd:8"
 # the eviction leg: (clients, cohort, capacity, rounds)
-EVICT_POP = (192, 24, 32, 6)
+EVICT_POP = (192, 24, 32, 4)
 LLAMA_POP = dict(n_clients=1_000_000, cohort=2, capacity=2,
-                 eviction="sketch", spec="topk:0.05>>qsgd:4@fused", rounds=3)
+                 eviction="sketch", spec="topk:0.05>>qsgd:4@fused", rounds=2)
 LLAMA_PEAK_GIB = 76.0
 # slice 6's path: the survey's client and server algorithms on paper_lm,
 # E=2, lr 0.2 unless a run says otherwise; the adaptive server steps at
@@ -351,7 +392,7 @@ LLAMA_ALGO_RUNS = (
 SEL_CLIENTS, SEL_PER_ROUND, SEL_SEQ, SEL_BATCH, SEL_ROUNDS = 16, 4, 32, 2, 3
 SEL_POLICIES = ("random", "power_of_choice", "multi_criteria")
 SEL_SPEC = "topk:0.05>>qsgd:8"
-ASYNC_SLOTS, ASYNC_SEQ, ASYNC_BATCH, ASYNC_EVENTS = 8, 48, 4, 32
+ASYNC_SLOTS, ASYNC_SEQ, ASYNC_BATCH, ASYNC_EVENTS = 8, 48, 4, 24
 ASYNC_FL = dict(uplink_compressor="topk:0.05>>qsgd:8", staleness_alpha=0.5)
 # (label, Topology.async_ knobs, FLConfig knobs); "median" is the median
 # fault-free (resource) latency of the clients, bench_async's deadline
@@ -450,6 +491,37 @@ PREFILL_BATCH = 1
 # shape's global batch is 256), attention and cross-entropy in chunks of
 # 512 (the round engine's default, the reference dry-run's)
 TRAIN4K_CLIENTS, TRAIN4K_BATCH, TRAIN4K_CHUNK, TRAIN4K_ROUNDS = 2, 1, 512, 2
+# slice 12's topologies: one client a rank, every rank on the card over
+# gloo (NCCL cannot put two ranks of one communicator on one card);
+# (label, FLConfig knobs, kernels of the kernel backend)
+RANK_TIMEOUT_S = 300             # the process group's; a hung rank fails
+TOPO_RANKS, TOPO_ROUNDS = 4, 3
+TOPO_FL = dict(local_steps=2, local_lr=0.2)
+STAR_CHAINS = (
+    ("fedsgd identity", dict(algorithm="fedsgd", local_steps=1,
+                             uplink_compressor="none"), ()),
+    ("EF topk:0.05>>qsgd:4@fused",
+     dict(uplink_compressor="topk:0.05>>qsgd:4@fused"),
+     ("threshold_sparsify", "qsgd_quantize", "qsgd_pack")),
+    ("ternary packed", dict(uplink_compressor="ternary@fused"),
+     ("ternarize_pack",)),
+    ("SCAFFOLD qsgd:8", dict(algorithm="scaffold",
+                             uplink_compressor="qsgd:8"),
+     ("qsgd_quantize",)),
+)
+STAR_MASKED = ("EF topk:0.05>>qsgd:4@fused>>secagg",
+               dict(uplink_compressor="topk:0.05>>qsgd:4@fused>>secagg"),
+               ("threshold_sparsify", "qsgd_quantize", "qsgd_pack"))
+HIER_FL = dict(uplink_compressor="qsgd:8", pod_compressor="qsgd8",
+               sync_every=2, telemetry=True)
+HIER_ROUNDS, GOSSIP_ROUNDS = 4, 5
+GOSSIP_RUNS = (("ring", "qsgd:8", ("qsgd_quantize",)),
+               ("ring", "topk:0.25>>qsgd:8",
+                ("threshold_sparsify", "qsgd_quantize")),
+               ("expander", "qsgd:8", ("qsgd_quantize",)),
+               ("expander", "topk:0.25>>qsgd:8",
+                ("threshold_sparsify", "qsgd_quantize")))
+LLAMA_STAR = dict(uplink_compressor="topk:0.05>>qsgd:4@fused")
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -1045,7 +1117,7 @@ def paper_lm_phase(dev):
               flush=True)
 
 
-def llama_phase(dev, fl_kw, expect, what):
+def llama_phase(dev, fl_kw, expect, what, profile=True):
     """llama3_2_1b at full width and depth through the kernels."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import Model
@@ -1059,7 +1131,8 @@ def llama_phase(dev, fl_kw, expect, what):
           f"{LLAMA_SEQ}, batch {LLAMA_BATCH}, {LLAMA_ROUNDS} rounds of "
           f"{fl_kw} backend=kernel", flush=True)
     wide_phase(dev, model, fl_kw, expect, f"llama3_2_1b {what}",
-               LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS)
+               LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH, LLAMA_ROUNDS,
+               profile=profile)
 
 
 def wide_phase(dev, model, fl_kw, expect, what, clients, seq, batch, rounds,
@@ -1634,7 +1707,8 @@ def eviction_phase(dev):
 def llama_population_phase(dev):
     """llama3_2_1b at full width and depth over a million clients with a
     two-slot sketch store: finite losses, 2 evictions and 2 recoveries in
-    every round after the first, and the peak memory."""
+    every round after the first, and the peak memory (no round under the
+    profiler: summarising a 10 s round took longer than the round)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.population import ClientPopulation
     from repro_torch.models.model import Model
@@ -1655,7 +1729,7 @@ def llama_population_phase(dev):
     t0 = time.perf_counter()
     engine, state, ms, recs, prof = run_population(
         model, dict(uplink_compressor=spec), "kernel", pop, LLAMA_SEQ,
-        LLAMA_BATCH, rounds, dev, 1, 0.05, profiled=True)
+        LLAMA_BATCH, rounds, dev, 1, 0.05)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     check_launches(ran, ("threshold_sparsify", "qsgd_pack"), what)
@@ -1679,7 +1753,6 @@ def llama_population_phase(dev):
           f"(limit {LLAMA_PEAK_GIB:.0f}; last raised in the "
           f"{engine.aux['peak_log'].get('hop')} hop); {round_times(recs)} "
           f"({secs:.2f}s in all)", flush=True)
-    print_profile(prof, recs[-1]["secs"], f"{what}, last round")
     del engine, state, ms
     torch.cuda.empty_cache()
 
@@ -1877,7 +1950,7 @@ def llama_algorithm_phase(dev, tag):
     t0 = time.perf_counter()
     sim, state, ms, times, prof, peak_log = run_algorithm(
         model, fl_kw, "kernel", LLAMA_CLIENTS, LLAMA_SEQ, LLAMA_BATCH,
-        rounds, eval_every, dev, steps, 0.05, profiled=True)
+        rounds, eval_every, dev, steps, 0.05)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     check_launches(ran, kernels, what)
@@ -1903,7 +1976,6 @@ def llama_algorithm_phase(dev, tag):
     print(f"{what}: peak memory {peak:.2f} GiB (limit "
           f"{LLAMA_PEAK_GIB:.0f}; last raised in the {peak_log.get('hop')} "
           f"hop), state GiB {state_gib}, on {card_line()}", flush=True)
-    print_profile(prof, times[-1], f"{what}, last round")
     del sim, state, ms
     torch.cuda.empty_cache()
 
@@ -2248,7 +2320,7 @@ def llama_async_phase(dev):
                   dict(buffer_size=kw["buffer_size"],
                        latency_profile=kw["latency_profile"]), "kernel",
                   kw["slots"], LLAMA_SEQ, LLAMA_BATCH, kw["events"], dev, 1,
-                  0.05, profiled=True)
+                  0.05)
     secs = time.perf_counter() - t0
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     check_launches(ran, ("threshold_sparsify", "qsgd_pack"), what)
@@ -2274,7 +2346,6 @@ def llama_async_phase(dev):
           f"{init_peak:.2f} GiB by the end of the init; last raised in the "
           f"{peak_log.get('hop', 'init')} hop), state GiB {state_gib}, on "
           f"{card_line()}", flush=True)
-    print_profile(prof, times[-1], f"{what}, last event")
     del engine, state, ms
     torch.cuda.empty_cache()
 
@@ -3758,7 +3829,543 @@ def full_width_phase(dev, tag):
           f"rounds of EF {FULL_SPEC} backend=kernel", flush=True)
     wide_phase(dev, model, dict(uplink_compressor=FULL_SPEC),
                fused_chain_kernels(model), what, clients, seq, batch,
-               rounds, inspect)
+               rounds, inspect, profile=False)
+
+
+# ---------------------------------------------------------------------------
+# phases 15-15e: the star, hier and gossip topologies over torch.distributed
+# ---------------------------------------------------------------------------
+
+def rank_setup(rank, world, init, backend="gloo"):
+    """A spawned rank: the script's determinism settings, the port on the
+    path, the process group joined (every gloo rank on cuda:0).  Ranks
+    that share the card take their memory in expandable segments, so that
+    one rank's freed blocks do not stay reserved as fragments beside the
+    other's."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    from repro_torch.launch.mesh import init_ranks
+    return init_ranks(backend, "cuda", rank, world, init,
+                      timeout=RANK_TIMEOUT_S)
+
+
+def run_group(target, nproc, what, *args):
+    """``target(rank, nproc, init, out_dir, *args)`` in ``nproc`` spawned
+    ranks (the kernels are built already, so they only load them); a rank
+    that fails or outlives RANK_TIMEOUT_S fails the phase.  Returns the
+    ranks' JSON reports."""
+    import shutil
+
+    from repro_torch.launch.mesh import run_ranks
+    tmp = scratch_dir(f"{what}-")
+    try:
+        try:
+            run_ranks(target, nproc, args=(tmp,) + args,
+                      timeout=RANK_TIMEOUT_S + 120)
+        except RuntimeError as e:
+            fail(f"{what}: {e}")
+        reps = []
+        for r in range(nproc):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+        return reps
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rank_fail(rank, msg):
+    """A rank's check failed: say so and exit non-zero (the group fails)."""
+    print(f"chip_smoke: FAIL: rank {rank}: {msg}", file=sys.stderr,
+          flush=True)
+    os._exit(1)
+
+
+def mesh_rounds(engine, state, data_fn, rounds):
+    """``rounds`` rounds of a mesh engine, each synchronised and timed,
+    with the collective wrapper's records of each round."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.engine import stack_rows
+    ms, times, recs = [], [], []
+    for _ in range(rounds):
+        aggregation.COLLECTIVES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = engine.round_fn(state, engine.local_batch(
+            data_fn(state.round)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        recs.append(list(aggregation.COLLECTIVES))
+        ms.append(m)
+    return state, stack_rows(ms), times, recs
+
+
+def sum_ranks(value):
+    """The sum over the group (a host int64 all-reduce outside the
+    collective wrapper: a check, not a round's traffic)."""
+    import torch.distributed as dist
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.all_reduce(t)
+    return int(t.item())
+
+
+def shares(part, whole):
+    """Each round's ``part`` seconds as a percentage of its ``whole``."""
+    return ", ".join(f"{100 * p / w:.0f}%" for p, w in zip(part, whole))
+
+
+def ledger_bytes(clients, per_client):
+    """The ledger's uplink for ``per_client`` payload bytes from each of
+    ``clients``: its own float32 product of the count and the term."""
+    return int(torch.tensor(float(clients), dtype=torch.float32)
+               * torch.tensor(float(per_client), dtype=torch.float32))
+
+
+def wire_bytes(recs, hop):
+    return [sum(r.nbytes for r in rr if r.hop == hop) for rr in recs]
+
+
+def payload_per_client(spec, model, dev, **kw):
+    """One client's payload bytes over the model's leaves, from the plain
+    pipeline (its shapes are the kernel pipeline's)."""
+    from repro_torch.compress.api import make_compressor
+    from repro_torch.compress.wire_format import payload_nbytes
+    up = make_compressor(spec, backend="jax", **kw)
+    return sum(payload_nbytes(up, n, device=dev) for n in model.param_sizes())
+
+
+def check_wire_dtypes(rank, recs, hop, spec, sizes, what):
+    """The packed wire gathers uint8 and no int8 code plane, the staged
+    QSGD wire int8, only the identity wire all-reduces float32; a float32
+    operand of a compressed wire is side info (scales, mu: at most one per
+    2,048 coordinates), never a code plane."""
+    rs = [r for rr in recs for r in rr if r.hop == hop]
+    dts = {str(r.dtype).replace("torch.", "") for r in rs}
+    ops = {r.op for r in rs}
+    if spec == "none":
+        if (dts, ops) != ({"float32"}, {"all_reduce"}):
+            rank_fail(rank, f"{what}: identity wire {dts} {ops}")
+        return dts
+    limit = max(1, -(-max(sizes) // 2048))
+    big = [r.nbytes // 4 for r in rs if r.dtype == torch.float32
+           and r.nbytes // 4 > limit]
+    if ops != {"all_gather"} or big:
+        rank_fail(rank, f"{what}: wire ops {ops}, f32 planes {big}")
+    packed = "@fused" in spec
+    if packed and ("uint8" not in dts or "int8" in dts):
+        rank_fail(rank, f"{what}: packed wire dtypes {dts}")
+    if not packed and "qsgd" in spec and "int8" not in dts:
+        rank_fail(rank, f"{what}: staged qsgd wire dtypes {dts}")
+    return dts
+
+
+def backend_pairs(runs, what, rank, skip_ctx=False, skip=(), loose=False):
+    """Every state tensor and metric of the kernel run bit-equal to the
+    plain run's (SecAgg contexts dropped where asked, the ledger fields of
+    ``skip`` left out).  ``loose`` (the ternary wire, whose kernel sums mu
+    in another order): the ledger exact, the losses within rtol 1e-5, the
+    params and pipeline rows within rtol 1e-4 / atol 1e-6 on >= 99.9% of
+    each tensor's elements (a support flip at a threshold tie moves one
+    coordinate by a whole mu: DESIGN.md section 6's engine scope)."""
+    from repro_torch.compress.secure_agg import drop_mask_ctx
+    (sk, mk), (sp, mp) = runs["kernel"], runs["jax"]
+    comm = (lambda s: drop_mask_ctx(s)) if skip_ctx else (lambda s: s)
+    state = [list(zip(_tensors(f(sk)), _tensors(f(sp)))) for f in (
+        lambda s: s.params, lambda s: comm(s.comm_state),
+        lambda s: s.control, lambda s: s.client_controls)]
+    state = [p for group in state for p in group]
+    ledger = [(getattr(mk["ledger"], f), getattr(mp["ledger"], f))
+              for f in mk["ledger"].fields() if f not in skip]
+    metrics = [(mk[k], mp[k]) for k in ("loss", "pod_divergence",
+                                         "consensus") if k in mk]
+    for group, pairs in (("state", state), ("ledger", ledger),
+                         ("metric", metrics)):
+        for a, b in pairs:
+            if torch.equal(a, b):
+                continue
+            err = float((a.double() - b.double()).abs().max())
+            if loose and group == "state" and torch.isclose(
+                    a, b, rtol=1e-4, atol=1e-6).double().mean() >= 0.999:
+                continue
+            if loose and group == "metric" and torch.allclose(a, b,
+                                                               rtol=1e-5):
+                continue
+            rank_fail(rank, f"{what}: kernel backend differs from the plain "
+                            f"backend in a {group} tensor (max abs err "
+                            f"{err})")
+    return len(state) + len(ledger) + len(metrics)
+
+
+def topology_ranks(rank, world, init, out_dir):
+    """One of phase 15/15c/15d's 4 ranks on the card (gloo): the star's
+    chains, then hier at pod 2 x data 2, then gossip, each phase's kernel
+    launches counted from 0 in this rank."""
+    dev = rank_setup(rank, world, init)
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    devices = [None] * world
+    dist.all_gather_object(devices, str(dev))
+    report = {"rank": rank, "device": str(dev), "phases": {}}
+    mesh4 = make_mesh({"data": world, "model": 1}, dev)
+    mesh22 = make_mesh({"pod": 2, "data": world // 2, "model": 1}, dev)
+    for name, fn, mesh in (("15", star_rank_phase, mesh4),
+                           ("15c", hier_rank_phase, mesh22),
+                           ("15d", gossip_rank_phase, mesh4)):
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        lines = fn(rank, model, mesh, dev, devices)
+        report["phases"][name] = {
+            "launches": dict(launch_counts()),
+            "seconds": time.perf_counter() - t0, "lines": lines}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def paper_data(model, n, dev, lead=None):
+    """Round r's paper_lm batch over n clients (phase 4's seq and batch),
+    reshaped to ``lead`` (G, Ce) for the hierarchy."""
+    from repro_torch.data.synthetic import sample_round
+    data = fed_data(model, n, PAPER_LM_SEQ, PAPER_LM_BATCH)
+
+    def data_fn(r):
+        b = sample_round(data, r, dev)
+        if lead is None:
+            return b
+        return {k: v.reshape(lead + tuple(v.shape[1:])) for k, v in b.items()
+                if k in ("tokens", "labels", "mask")}
+    return data_fn
+
+
+def star_rank_phase(rank, model, mesh, dev, devices):
+    """Phase 15 in one rank: each STAR_CHAINS chain and the masked twin of
+    the EF chain, TOPO_ROUNDS rounds on each backend."""
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.types import FLConfig
+    C = mesh.shape["data"]
+    sizes = model.param_sizes()
+    data_fn = paper_data(model, C, dev)
+    lines, runs_by = [], {}
+    for label, kw, expect in STAR_CHAINS + (STAR_MASKED,):
+        runs = {}
+        for backend in ("kernel", "jax"):
+            fl = FLConfig(backend=backend, **dict(TOPO_FL, **kw))
+            eng = make_round_engine(model, fl, Topology.star(),
+                                    chunk=PAPER_LM_SEQ, mesh=mesh)
+            before = launch_counts()
+            st, ms, times, recs = mesh_rounds(eng, eng.init_fn(0), data_fn,
+                                              TOPO_ROUNDS)
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            for name, count in ran.items():
+                if (count > 0) != (backend == "kernel" and name in expect):
+                    rank_fail(rank, f"15 {label} {backend}: {name} launched "
+                                    f"{count} times")
+            spec = fl.uplink_compressor
+            per = payload_per_client(spec, model, dev)
+            got = wire_bytes(recs, "wire")
+            if got != [per] * TOPO_ROUNDS:
+                rank_fail(rank, f"15 {label}: wire bytes {got} != payload "
+                                f"{per} a round")
+            total = sum_ranks(sum(got))
+            scale = 2 if kw.get("algorithm") == "scaffold" else 1
+            led = [int(v) for v in ms["ledger"].uplink_wire.tolist()]
+            if total != C * per * TOPO_ROUNDS or led != [
+                    ledger_bytes(C, scale * per)] * TOPO_ROUNDS:
+                rank_fail(rank, f"15 {label}: the ranks' wire bytes {total} "
+                                f"over {TOPO_ROUNDS} rounds, x{scale} per "
+                                f"client {scale * per}, ledger {led}")
+            dts = check_wire_dtypes(rank, recs, "wire", spec, sizes,
+                                    f"15 {label}")
+            if scale == 2:
+                dense = wire_bytes(recs, "dense")
+                if dense != [4 * sum(sizes)] * TOPO_ROUNDS:
+                    rank_fail(rank, f"15 {label}: dense control bytes "
+                                    f"{dense}")
+            coll = [sum(r.seconds for r in rr) for rr in recs]
+            losses = [float(v) for v in ms["loss"]]
+            if not all(v == v and abs(v) < 1e6 for v in losses):
+                rank_fail(rank, f"15 {label}: loss {losses}")
+            runs[backend] = (st, ms)
+            lines.append(
+                f"phase 15 star {label} backend={backend}: {C} ranks over "
+                f"gloo on {devices}, round times "
+                f"{', '.join(f'{t:.3f}' for t in times)} s (collectives "
+                f"{shares(coll, times)} of each), loss {fmt(losses)}, wire "
+                f"{per:,} B a rank a "
+                f"round in {sorted(dts)}, the ranks' sum {C} x that, x{scale} "
+                f"in f32 == ledger {led[0]:,} B, launches {ran}")
+        loose = "ternary" in label
+        n = backend_pairs(runs, f"15 {label}", rank, skip_ctx=True,
+                          loose=loose)
+        lines.append(f"phase 15 star {label}: kernel and plain backends "
+                     + ("agree at engine scope: ledger exact, losses "
+                        "within rtol 1e-5, params and EF rows within rtol "
+                        "1e-4 on >= 99.9% of each tensor (the kernel's mu "
+                        "sums in another order)" if loose
+                        else "bit-identical")
+                     + f" ({n} tensors)")
+        runs_by[label] = runs["kernel"]
+    # SecAgg: the masked EF chain equals the clear one bit for bit
+    masked, clear = runs_by[STAR_MASKED[0]], runs_by[STAR_CHAINS[1][0]]
+    n = backend_pairs({"kernel": masked, "jax": clear},
+                      "15 masked vs clear", rank, skip_ctx=True,
+                      skip=("uplink_entropy",))
+    lines.append(f"phase 15 star {STAR_MASKED[0]}: masked == clear bit for "
+                 f"bit ({n} tensors: params, EF rows with the mask context "
+                 f"dropped, the ledger but the entropy bill, losses)")
+    return lines
+
+
+def hier_rank_phase(rank, model, mesh, dev, devices):
+    """Phase 15c in one rank: hier at pod 2 x data 2, HIER_ROUNDS rounds of
+    qsgd:8 on the edge and the pod hop, the cloud hop every 2nd round,
+    telemetry on, both backends."""
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.types import FLConfig
+    G, Ce = mesh.shape["pod"], mesh.shape["data"]
+    data_fn = paper_data(model, G * Ce, dev, (G, Ce))
+    runs, lines = {}, []
+    for backend in ("kernel", "jax"):
+        fl = FLConfig(backend=backend, **dict(TOPO_FL, **HIER_FL))
+        eng = make_round_engine(model, fl, Topology.hier(fl.sync_every),
+                                chunk=PAPER_LM_SEQ, mesh=mesh)
+        before = launch_counts()
+        st, ms, times, recs = mesh_rounds(eng, eng.init_fn(0), data_fn,
+                                          HIER_ROUNDS)
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        for name, count in ran.items():
+            on = backend == "kernel" and name == "qsgd_quantize"
+            if (count > 0) != on:
+                rank_fail(rank, f"15c {backend}: {name} launched {count}")
+        cloud = [(r + 1) % fl.sync_every == 0 for r in range(HIER_ROUNDS)]
+        div = [float(v) for v in ms["pod_divergence"]]
+        if any(c and d != 0.0 for c, d in zip(cloud, div)) or \
+                not all(d > 0 for c, d in zip(cloud, div) if not c):
+            rank_fail(rank, f"15c: pod_divergence {div} on cloud rounds "
+                            f"{cloud}")
+        edge = [sum_ranks(b) for b in wire_bytes(recs, "edge")]
+        c0 = [sum_ranks(b if mesh.axis_index("data") == 0 else 0)
+              for b in wire_bytes(recs, "cloud")]
+        t = eng.terms
+        want_edge = [int(t["edge_wire"])] * HIER_ROUNDS
+        want_cloud = [int(t["cloud_wire"]) if c else 0 for c in cloud]
+        led = [float(v) for v in ms["ledger"].uplink_wire]
+        if edge != want_edge or c0 != want_cloud or led != [
+                float(e + c) for e, c in zip(want_edge, want_cloud)]:
+            rank_fail(rank, f"15c: edge bytes {edge} (ledger {want_edge}), "
+                            f"cloud bytes over data index 0 {c0} (ledger "
+                            f"{want_cloud}), ledger {led}")
+        pod_slot = [float(v) for v in ms["round_stats"].up_stage_bytes[:, -1]]
+        if pod_slot != [float(c) for c in want_cloud]:
+            rank_fail(rank, f"15c: telemetry pod slot {pod_slot}")
+        dts = check_wire_dtypes(rank, recs, "edge", "qsgd:8",
+                                model.param_sizes(), "15c edge")
+        coll = [sum(r.seconds for r in rr) for rr in recs]
+        runs[backend] = (st, ms)
+        lines.append(
+            f"phase 15c hier pod {G} x data {Ce} backend={backend}: ranks "
+            f"over gloo on {devices}, round times "
+            f"{', '.join(f'{x:.3f}' for x in times)} s (collectives "
+            f"{shares(coll, times)}), loss "
+            f"{fmt([float(v) for v in ms['loss']])}, "
+            f"pod_divergence {div}, edge bytes {edge} == edge_wire, cloud "
+            f"bytes over each data index's pod group {c0} == cloud_wire on "
+            f"cloud rounds ({sorted(dts)}), telemetry pod slot {pod_slot}, "
+            f"launches {ran}")
+    n = backend_pairs(runs, "15c", rank)
+    lines.append(f"phase 15c: kernel and plain backends bit-identical ({n} "
+                 f"tensors)")
+    return lines
+
+
+def gossip_rank_phase(rank, model, mesh, dev, devices):
+    """Phase 15d in one rank: the ring and expander_graph(4), each on qsgd:8
+    and on EF topk:0.25>>qsgd:8, GOSSIP_ROUNDS rounds from per-node
+    perturbed params (lr 0.01, the reference's case), both backends."""
+    from repro_torch.core.engine import (Topology, expander_graph,
+                                         make_round_engine)
+    from repro_torch.core.types import FLConfig
+    C = mesh.shape["data"]
+    data_fn = paper_data(model, C, dev)
+    lines = []
+    for graph_name, spec, expect in GOSSIP_RUNS:
+        runs = {}
+        graph = None if graph_name == "ring" else expander_graph(C)
+        for backend in ("kernel", "jax"):
+            fl = FLConfig(backend=backend, uplink_compressor=spec,
+                          local_lr=0.01, local_steps=1)
+            eng = make_round_engine(model, fl, Topology.gossip(graph),
+                                    chunk=PAPER_LM_SEQ, mesh=mesh)
+            st = eng.init_fn(0)
+            g = torch.Generator(device=dev)
+            g.manual_seed(9 + rank)
+            st.params = {n: (p.float() + 0.1 * torch.randn(
+                p.shape, generator=g, device=dev)).to(p.dtype)
+                for n, p in st.params.items()}
+            before = launch_counts()
+            st, ms, times, recs = mesh_rounds(eng, st, data_fn,
+                                              GOSSIP_ROUNDS)
+            ran = {k: v - before[k] for k, v in launch_counts().items()}
+            for name, count in ran.items():
+                if (count > 0) != (backend == "kernel" and name in expect):
+                    rank_fail(rank, f"15d {graph_name} {spec} {backend}: "
+                                    f"{name} launched {count}")
+            cons = [float(v) for v in ms["consensus"]]
+            if not cons[-1] < 0.7 * cons[0]:
+                rank_fail(rank, f"15d {graph_name} {spec}: consensus {cons}")
+            mix = [sum_ranks(b) for b in wire_bytes(recs, "mix")]
+            if mix != [int(eng.terms["mix_wire"])] * GOSSIP_ROUNDS:
+                rank_fail(rank, f"15d {graph_name} {spec}: mix bytes {mix} "
+                                f"!= mix_wire {eng.terms['mix_wire']}")
+            coll = [sum(r.seconds for r in rr) for rr in recs]
+            runs[backend] = (st, ms)
+            lines.append(
+                f"phase 15d gossip {graph_name} {spec} backend={backend}: "
+                f"{C} ranks over gloo, round times "
+                f"{', '.join(f'{x:.3f}' for x in times)} s (collectives "
+                f"{shares(coll, times)}), consensus {fmt(cons)} (last < "
+                f"0.7x first), mix bytes "
+                f"{mix[0]:,} a round == mix_wire, launches {ran}")
+        n = backend_pairs(runs, f"15d {graph_name} {spec}", rank)
+        lines.append(f"phase 15d gossip {graph_name} {spec}: kernel and "
+                     f"plain backends bit-identical ({n} tensors)")
+    return lines
+
+
+def topology_phase(dev):
+    """Phases 15, 15c and 15d: one group of 4 ranks on the card over gloo
+    (NCCL cannot put two ranks of one communicator on one card); each
+    rank reports its launches per phase, added here to this process's
+    counts."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reps = run_group(topology_ranks, TOPO_RANKS, "phase15")
+    print(f"phases 15-15d: {TOPO_RANKS} ranks over gloo on "
+          f"{[r['device'] for r in reps]}, {time.perf_counter() - t0:.1f}s "
+          f"with the spawn on {card_line()}", flush=True)
+    for name in ("15", "15c", "15d"):
+        for line in reps[0]["phases"][name]["lines"]:
+            print(line, flush=True)
+        total = {k: sum(r["phases"][name]["launches"][k] for r in reps)
+                 for k in KERNELS}
+        print(f"phase {name}: kernel launches over the ranks {total} "
+              f"({max(r['phases'][name]['seconds'] for r in reps):.1f}s)",
+              flush=True)
+        build.LAUNCHES.update(total)
+
+
+def llama_star_ranks(rank, world, init, out_dir):
+    """One of phase 15b's 2 ranks: llama3_2_1b uncut as one client of the
+    star, EF topk:0.05>>qsgd:4@fused through the kernels."""
+    dev = rank_setup(rank, world, init)
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.synthetic import sample_round
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("llama3_2_1b"))
+    mesh = make_mesh({"data": world, "model": 1}, dev)
+    fl = FLConfig(backend="kernel", local_steps=1, local_lr=0.05,
+                  **LLAMA_STAR)
+    eng = make_round_engine(model, fl, Topology.star(), chunk=LLAMA_SEQ,
+                            mesh=mesh)
+    data = fed_data(model, world, LLAMA_SEQ, LLAMA_BATCH)
+    from repro_torch.kernels import build
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.LAUNCHES.clear()
+    state = eng.init_fn(0)
+    state, ms, times, recs = mesh_rounds(
+        eng, state, lambda r: sample_round(data, r, dev), LLAMA_ROUNDS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = dict(launch_counts())
+    # llama's top-k carriers are all even: the packed kernel quantizes them
+    for name, count in launches.items():
+        if (count > 0) != (name in ("threshold_sparsify", "qsgd_pack")):
+            rank_fail(rank, f"15b: {name} launched {count}")
+    losses = [float(v) for v in ms["loss"]]
+    if not all(v == v and abs(v) < 1e6 for v in losses) or not all(
+            bool(torch.isfinite(p.float()).all())
+            for p in state.params.values()):
+        rank_fail(rank, f"15b: loss or params not finite ({losses})")
+    per = payload_per_client(fl.uplink_compressor, model, dev)
+    got = wire_bytes(recs, "wire")
+    total = sum_ranks(sum(got))
+    led = [int(v) for v in ms["ledger"].uplink_wire.tolist()]
+    if got != [per] * LLAMA_ROUNDS or total != world * per * LLAMA_ROUNDS \
+            or led != [ledger_bytes(world, per)] * LLAMA_ROUNDS:
+        rank_fail(rank, f"15b: wire bytes {got} (payload {per}), ranks' sum "
+                        f"{total}, ledger {led}")
+    dts = check_wire_dtypes(rank, recs, "wire", fl.uplink_compressor,
+                            model.param_sizes(), "15b")
+    coll = [sum(r.seconds for r in rr) for rr in recs]
+    if peak >= LLAMA_PEAK_GIB:
+        rank_fail(rank, f"15b: peak {peak:.2f} GiB")
+    report = {"rank": rank, "device": str(dev), "peak_gib": peak,
+              "times": times, "coll": coll, "wire": got, "dtypes":
+              sorted(dts), "launches": launches, "losses": losses,
+              "ledger": led}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def llama_star_phase(dev):
+    """Phase 15b: llama3_2_1b uncut as 2 ranks sharing the card over gloo
+    (one client each), 2 rounds through the kernels."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reps = run_group(llama_star_ranks, LLAMA_CLIENTS, "phase15b")
+    for r in reps:
+        print(f"phase 15b llama3_2_1b star rank {r['rank']} on {r['device']}"
+              f" over gloo: peak memory {r['peak_gib']:.2f} GiB (limit "
+              f"{LLAMA_PEAK_GIB:.0f}), round times "
+              f"{', '.join(f'{t:.3f}' for t in r['times'])} s, collectives "
+              f"{shares(r['coll'], r['times'])} of each, gathered "
+              f"{r['wire'][0]:,} B a round in "
+              f"{r['dtypes']}, loss {fmt(r['losses'])}, launches "
+              f"{r['launches']}", flush=True)
+    print(f"phase 15b: the ranks' wire bytes {LLAMA_CLIENTS} x "
+          f"{reps[0]['wire'][0]:,} a round, in f32 == ledger "
+          f"{reps[0]['ledger']}, "
+          f"{time.perf_counter() - t0:.1f}s with the spawn, on "
+          f"{card_line()}", flush=True)
+    build.LAUNCHES.update({k: sum(r["launches"][k] for r in reps)
+                           for k in KERNELS})
+
+
+def nccl_cli_phase(dev):
+    """Phase 15e: the train CLI with --nproc 1 --dist-backend nccl (the
+    rank spawned by the CLI, on cuda:0) for the star and for the hierarchy
+    at pod 1 x data 1: the NCCL path built and run on the card.  The
+    CLI's rank prints; its launches stay in that process."""
+    from repro_torch.launch import train
+    base = ["--nproc", "1", "--dist-backend", "nccl", "--backend", "kernel",
+            "--rounds", "2", "--seq", str(PAPER_LM_SEQ),
+            "--batch-per-client", str(PAPER_LM_BATCH), "--local-steps", "1",
+            "--compressor", "topk:0.05>>qsgd:4@fused"]
+    for extra in ([], ["--hierarchical", "--sync-every", "2"]):
+        t0 = time.perf_counter()
+        try:
+            train.main(base + extra)
+        except RuntimeError as e:
+            fail(f"15e {extra}: {e}")
+        print(f"phase 15e nccl {'hier' if extra else 'star'}: the CLI's "
+              f"rank ran, {time.perf_counter() - t0:.1f}s with the spawn",
+              flush=True)
 
 
 def print_profile(prof, wall_s, what, top=10):
@@ -3875,10 +4482,11 @@ def main():
                                         CHAINS[1]),
                   lambda d: llama_phase(d, LLAMA_STC,
                                         ("ternarize_pack", "qsgd_quantize"),
-                                        "EF stc:0.1@fused + lfl8"),
+                                        "EF stc:0.1@fused + lfl8",
+                                        profile=False),
                   lambda d: llama_phase(d, LLAMA_SKETCH,
                                         ("count_sketch", "qsgd_quantize"),
-                                        "EF sketch>>qsgd:8"),
+                                        "EF sketch>>qsgd:8", profile=False),
                   population_phase, eviction_phase, llama_population_phase,
                   algorithms_phase,
                   lambda d: llama_algorithm_phase(d, "7b"),
@@ -3888,7 +4496,8 @@ def main():
                   telemetry_phase, llama_telemetry_phase, families_phase,
                   lambda d: full_width_phase(d, "13b"),
                   lambda d: full_width_phase(d, "13c"),
-                  serve_parity_phase, serve_full_phase, train_4k_phase):
+                  serve_parity_phase, serve_full_phase, train_4k_phase,
+                  topology_phase, llama_star_phase, nccl_cli_phase):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.rng import Key
+
 WIRE_FORMATS = ("staged", "packed")
 
 
@@ -63,3 +65,35 @@ def pack4(codes):
 def unpack4(packed, n: int):
     """uint8 (ceil(n/2),) -> int8 codes (n,) (4-bit sign extension)."""
     return _unpack(packed, n, 4)
+
+
+def payload_planes(payload) -> list:
+    """The tensors of an encoded payload in ``jax.tree.leaves`` order (dict
+    keys sorted, tuples in order): what a collective moves.  A SecAgg
+    payload's ``secagg_ctx`` (mask key, ring index, cohort) rides out of
+    band, unbilled (``secure_agg.CTX_BITS``), and is not among them."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            out.append(node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                if k != "secagg_ctx":
+                    walk(node[k])
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+    walk(payload)
+    return out
+
+
+def payload_nbytes(pipe, n: int, device="cpu") -> int:
+    """Exact bytes of ``pipe``'s encoded payload for a length-n leaf: one
+    encode of zeros on ``device`` (its shapes and dtypes do not depend on
+    the values).  This is what the aggregation collective gathers per
+    client; for packable specs the ledger's ``wire_bits(n)`` equals
+    ``8 * payload_nbytes``."""
+    x = torch.zeros((n,), dtype=torch.float32, device=device)
+    payload, _ = pipe.encode(pipe.init((n,), device=device), Key(0), x)
+    return sum(t.numel() * t.element_size() for t in payload_planes(payload))

@@ -25,6 +25,13 @@ client and server algorithms' state fields of an ``FLState``
 (the scheduler's vectors on the CPU, the buffered rows, losses, pending
 pipeline rows and slot table on the device).
 
+``shard_rows`` / ``unshard_rows`` split a mesh topology's per-client
+state (the reference's ``FLState.comm_state`` and SCAFFOLD's
+``client_controls``, led by (C,) on the star and gossip or by (G, Ce) on
+the hierarchy) into each rank's row and put the rows back together, on
+numpy trees (:func:`store_from_jax` / :func:`store_to_jax` then cross
+the row to the port and back).
+
 A SecAgg stage's state (``mask_key``, ``mask_idx``, ``mask_cohort``,
 ``inner``) crosses too.  Its context is injected afresh at every
 dispatch, so only ``inner`` carries information: the port keeps no key
@@ -238,3 +245,35 @@ def async_state_to_jax(state) -> dict:
         else:
             out[k] = _to_numpy(v)
     return out
+
+
+def shard_rows(tree, index):
+    """One rank's row of a client-led numpy tree (dicts, tuples, arrays):
+    ``index`` holds the rank's coordinate on each leading dim, ``(c,)`` on
+    the star and gossip, ``(g, c)`` on the hierarchy, and the row keeps
+    those dims at size 1, as a rank's pipeline row does."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: shard_rows(v, index) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(shard_rows(v, index) for v in tree)
+    return np.asarray(tree)[tuple(slice(i, i + 1) for i in index)]
+
+
+def unshard_rows(rows, lead):
+    """The inverse of :func:`shard_rows`: the ranks' rows in
+    rank order (pod-major) back into one tree led by ``lead``, ``(C,)`` or
+    ``(G, Ce)``."""
+    first = rows[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: unshard_rows([r[k] for r in rows], lead) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(unshard_rows([r[i] for r in rows], lead)
+                           for i in range(len(first)))
+    lead = tuple(lead)
+    rest = np.asarray(first).shape[len(lead):]
+    return np.concatenate([np.asarray(r).reshape((1,) + rest)
+                           for r in rows]).reshape(lead + rest)

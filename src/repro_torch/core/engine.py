@@ -1,5 +1,5 @@
-"""The round engine (port of ``repro.core.engine``): the sim and async
-topologies.
+"""The round engine (port of ``repro.core.engine``): the sim, async, star,
+hier and gossip topologies.
 
 One FL round is a :class:`RoundProgram`, an ordered sequence of hops over a
 plain dict context, as in the reference (the ``sim`` topology):
@@ -26,10 +26,9 @@ index, and the chain folds in its stage index; the downlink roundtrips
 every leaf with the same downlink key — so a test that injects
 ``jax.random``-backed keys gets the reference's QSGD uniforms.
 
-The ``sim`` and ``async`` topologies are ported.  ``sim`` runs the
-fedavg, fedsgd, fedprox, scaffold and feddane client algorithms, CMFL
-(``cmfl_threshold``), EF or DGC uplinks, a downlink compressor
-roundtripped per leaf (e.g. ``lfl8``), the ``all``, ``random``,
+``sim`` runs the fedavg, fedsgd, fedprox, scaffold and feddane client
+algorithms, CMFL (``cmfl_threshold``), EF or DGC uplinks, a downlink
+compressor roundtripped per leaf (e.g. ``lfl8``), the ``all``, ``random``,
 ``power_of_choice`` and ``multi_criteria`` selection policies and the
 fedavg / fedavgm / fedadam / fedyogi server step, densely or over a
 streaming :class:`~repro_torch.core.population.ClientPopulation`
@@ -41,26 +40,41 @@ privacy wire (``secagg`` / ``dpnoise`` in the spec or ``FLConfig
 .secure_agg`` / ``dp_sigma`` / ``dp_clip``: the mask context is injected
 per client and leaf in ``wire_rows``) and the scenario's client dynamics
 (:mod:`repro_torch.core.scenario`: availability traces, mid-round
-dropout, per-client step budgets).  Every other knob raises
-``NotImplementedError`` naming the reference module that has it.
-The client and server algorithms' state runs leaf by leaf: no hop builds
-a concatenation of the model or of C clients' rows.
+dropout, per-client step budgets).
+
+``star``, ``hier`` and ``gossip`` run on a :class:`~repro_torch.launch
+.mesh.Mesh`: each client is one rank of a ``torch.distributed`` group and
+every round's transport is a real collective whose operand is the
+pipeline's encoded payload (:mod:`repro_torch.core.aggregation`).  The
+star runs the sim's hop list with three hops of its own (the rank's local
+update with the losses gathered, the collective wire, SCAFFOLD's control
+over a dense all-reduce); hier has the edge hop within each pod every
+round and the cloud hop across pods every ``sync_every`` rounds; gossip
+mixes each node's payload into its graph neighbours point to point.
+Every other knob raises ``NotImplementedError`` naming the reference
+module that has it.  The client and server algorithms' state runs leaf by
+leaf: no hop builds a concatenation of the model or of C clients' rows.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.compress.api import make_compressor
+from repro_torch.compress.api import Identity, make_compressor
 from repro_torch.compress.pipeline import error_feedback, momentum_correction
 from repro_torch.compress.secure_agg import (DPNoise, MASK_TAG, SecAgg,
                                              bind_n_leaves, has_mask_ctx,
                                              inject_mask_ctx)
+from repro_torch.core import aggregation
 from repro_torch.core import scenario as scn_mod
 from repro_torch.core import selection as sel
 from repro_torch.core import server_opt
+from repro_torch.core.aggregation import (comm_state_init,  # noqa: F401
+                                          index_state as _index_state,
+                                          stack_states as _stack_states)
 from repro_torch.core.rng import PRNGKey
 from repro_torch.core.types import CommLedger, FLConfig, FLState
 from repro_torch.data.pipeline import capability_latency
@@ -74,16 +88,48 @@ _ALGORITHMS = ("fedavg", "fedsgd", "fedprox", "scaffold", "feddane")
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Which shape the round's transport hops take; the port has ``sim``
-    and ``async``."""
-    kind: str
-    n_clients: int = 0
+    """Which shape the round's transport hops take.
+
+    ``graph`` (gossip) is a tuple of ``(edge, mix_weight)`` entries where
+    ``edge`` is either a ring offset (int: every node sends to ``(i + off)
+    % C``) or an explicit permutation tuple of length C (fixed points
+    ``sigma[i] == i`` do not send).  The per-node self weight is whatever
+    the incoming edge weights leave over; building the engine checks that the
+    mixing matrix is doubly stochastic.  :func:`expander_graph` and
+    :func:`erdos_renyi_graph` (or the ``Topology.gossip_*`` constructors)
+    build non-ring graphs."""
+    kind: str                          # star | hier | gossip | sim | async
+    n_clients: int = 0                 # sim / async only
+    sync_every: int = 4                # hier only (cloud hop period)
+    graph: tuple = ((1, 0.25), (-1, 0.25))   # gossip only
+    client_axis: str = ""              # star only ("" = from ArchConfig)
     # async only; the sentinels (0 / None / "") fall back to the FLConfig
     # fields at engine build time
     buffer_size: int = 0
     staleness_alpha: float = None
     latency_profile: str = ""
     flush_deadline: float = None
+
+    @staticmethod
+    def star(client_axis: str = "") -> "Topology":
+        return Topology(kind="star", client_axis=client_axis)
+
+    @staticmethod
+    def hier(sync_every: int = 4) -> "Topology":
+        return Topology(kind="hier", sync_every=sync_every)
+
+    @staticmethod
+    def gossip(graph=None) -> "Topology":
+        return Topology(kind="gossip", graph=tuple(graph) if graph
+                        else ((1, 0.25), (-1, 0.25)))
+
+    @staticmethod
+    def gossip_expander(n_clients: int, degree: int = 4) -> "Topology":
+        return Topology.gossip(expander_graph(n_clients, degree))
+
+    @staticmethod
+    def gossip_er(n_clients: int, p: float = 0.5, seed: int = 0) -> "Topology":
+        return Topology.gossip(erdos_renyi_graph(n_clients, p, seed))
 
     @staticmethod
     def sim(n_clients: int) -> "Topology":
@@ -110,6 +156,97 @@ class Topology:
                         flush_deadline=flush_deadline)
 
 
+# ---------------------------------------------------------------------------
+# Gossip graph constructors + the doubly-stochastic contract
+# ---------------------------------------------------------------------------
+
+def _graph_edges(spec, C: int):
+    """Directed (src, dst) pairs for one graph entry: a ring offset (int) or
+    an explicit permutation tuple (fixed points do not send)."""
+    if isinstance(spec, (int, np.integer)):
+        return [(i, (i + int(spec)) % C) for i in range(C)]
+    sigma = tuple(int(s) for s in spec)
+    if len(sigma) != C or sorted(sigma) != list(range(C)):
+        raise ValueError(f"graph entry {spec!r} is not a permutation of "
+                         f"range({C})")
+    return [(i, sigma[i]) for i in range(C) if sigma[i] != i]
+
+
+def mixing_matrix(graph, C: int) -> np.ndarray:
+    """The dense (C, C) gossip mixing matrix W (row i mixes *into* node i):
+    W[dst, src] += w per edge, and each node keeps whatever its incoming
+    edge weights leave over (per-node self weight)."""
+    W = np.zeros((C, C))
+    for spec, w in graph:
+        for src, dst in _graph_edges(spec, C):
+            W[dst, src] += float(w)
+    np.fill_diagonal(W, np.diag(W) + 1.0 - W.sum(axis=1))
+    return W
+
+
+def check_doubly_stochastic(W: np.ndarray, atol: float = 1e-6) -> None:
+    """Gossip averaging preserves the model mean and contracts to consensus
+    iff W is doubly stochastic with non-negative entries — checked at engine
+    build time for every graph."""
+    if W.min() < -atol:
+        raise ValueError(f"mixing matrix has negative entries "
+                         f"(min {W.min():.4f}): edge weights too large — "
+                         f"a node's incoming weights must sum to <= 1")
+    for axis, name in ((1, "row"), (0, "column")):
+        s = W.sum(axis=axis)
+        if not np.allclose(s, 1.0, atol=atol):
+            raise ValueError(f"mixing matrix {name} sums deviate from 1 "
+                             f"(max |err| {np.abs(s - 1).max():.4f}) — "
+                             f"graph is not doubly stochastic")
+
+
+def expander_graph(n: int, degree: int = 4) -> tuple:
+    """Circulant power-of-two expander: offsets ±1, ±2, ±4, ... with uniform
+    weights 1/(E+1).  Each offset is a permutation, so the mix is a convex
+    combination of permutation matrices — doubly stochastic by
+    construction."""
+    offs = []
+    j = 0
+    while len(offs) < degree and (1 << j) <= n // 2:
+        o = 1 << j
+        offs.append(o)
+        if len(offs) < degree and (n - o) % n not in offs and n - o != o:
+            offs.append(n - o)        # the symmetric (negative) offset
+        j += 1
+    w = 1.0 / (len(offs) + 1)
+    return tuple((o, w) for o in offs)
+
+
+def erdos_renyi_graph(n: int, p: float = 0.5, seed: int = 0) -> tuple:
+    """Erdős–Rényi G(n, p) gossip graph: the undirected edge set sampled,
+    greedily edge-coloured into matchings (each an involution permutation),
+    uniform edge weight 1/(max_degree + 1) so every node's self weight stays
+    non-negative and W is symmetric doubly stochastic."""
+    rng = np.random.default_rng(seed)
+    upper = np.triu(rng.random((n, n)) < p, 1)
+    edges = list(zip(*np.nonzero(upper)))
+    deg = np.zeros(n, int)
+    for i, j in edges:
+        deg[i] += 1
+        deg[j] += 1
+    if not edges:
+        raise ValueError(f"G({n}, {p}) sample (seed={seed}) has no edges — "
+                         f"raise p or change the seed")
+    w = 1.0 / (deg.max() + 1)
+    used: list = [set() for _ in range(n)]
+    matchings: list = []
+    for i, j in edges:
+        c = 0
+        while c in used[i] or c in used[j]:
+            c += 1
+        used[i].add(c)
+        used[j].add(c)
+        while len(matchings) <= c:
+            matchings.append(list(range(n)))
+        matchings[c][i], matchings[c][j] = j, i
+    return tuple((tuple(m), w) for m in matchings)
+
+
 @dataclasses.dataclass(eq=False)
 class RoundProgram:
     """One FL round as an ordered sequence of named hops."""
@@ -124,7 +261,10 @@ class RoundProgram:
 
 @dataclasses.dataclass
 class RoundEngine:
-    """A built round executor for one (model, fl, topology) binding."""
+    """A built round executor for one (model, fl, topology) binding.  On a
+    mesh (star, hier, gossip) it is this rank's: ``local_batch`` takes a
+    round's global batch (the reference's layout) to the rank's part, and
+    ``programs`` holds hier's separate edge and cloud programs."""
     topology: Topology
     round_fn: RoundProgram             # (state, batch) -> (state, metrics)
     init_fn: Any                       # seed -> FLState
@@ -134,6 +274,9 @@ class RoundEngine:
     device: torch.device
     aux: dict = dataclasses.field(default_factory=dict)
     eval_every: int = 1                # run_rounds' metrics_fn cadence
+    mesh: Any = None
+    local_batch: Optional[Callable] = None
+    programs: dict = dataclasses.field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -331,28 +474,6 @@ def _client_update(model: Model, fl: FLConfig, params, batch_c, chunk,
 # The shared dispatch body
 # ---------------------------------------------------------------------------
 
-def _index_state(st, c):
-    if isinstance(st, torch.Tensor):
-        return st[c]
-    if isinstance(st, dict):
-        return {k: _index_state(v, c) for k, v in st.items()}
-    if isinstance(st, tuple):
-        return tuple(_index_state(v, c) for v in st)
-    return st
-
-
-def _stack_states(states):
-    first = states[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(states)
-    if isinstance(first, dict):
-        return {k: _stack_states([s[k] for s in states]) for k in first}
-    if isinstance(first, tuple):
-        return tuple(_stack_states([s[i] for s in states])
-                     for i in range(len(first)))
-    return first
-
-
 @dataclasses.dataclass(eq=False)
 class Dispatch:
     """One dispatch generation: ``downlink(params, k_down) -> params`` (the
@@ -534,21 +655,6 @@ def make_dispatch(model: Model, fl: FLConfig, up, down, C: int,
                     aggregate_rows=aggregate_rows, epoch_steps=epoch_steps)
 
 
-def comm_state_init(pipe, params: dict, C: int, device):
-    """Zero pipeline state per leaf with a leading client dim."""
-    def lead(t):
-        if isinstance(t, torch.Tensor):
-            return torch.zeros((C,) + tuple(t.shape), dtype=t.dtype,
-                               device=device)
-        if isinstance(t, dict):
-            return {k: lead(v) for k, v in t.items()}
-        if isinstance(t, tuple):
-            return tuple(lead(v) for v in t)
-        return t
-    return tuple(lead(pipe.init(tuple(p.shape), device="meta"))
-                 for p in params.values())
-
-
 # ---------------------------------------------------------------------------
 # The server-topology round program
 # ---------------------------------------------------------------------------
@@ -570,10 +676,28 @@ def _attach_scenario(population, scenario):
     return dataclasses.replace(population, scenario=scenario)
 
 
+@dataclasses.dataclass
+class _StarWire:
+    """The star's own hops' transport (:func:`_build_star`): this rank's
+    client index of C, the collective aggregator, the dense one for
+    SCAFFOLD's controls, and the gather of a (1,) per-client value into
+    the (C,) one every rank sees."""
+    idx: int
+    aggregate: Callable            # (deltas, weights, rng, comm) -> agg, comm
+    aggregate_dense: Optional[Callable]   # (tree, weights, rng) -> agg
+    gather: Callable               # (1,) -> (C,)
+
+
 def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                           C: int, population=None, store=None,
                           device=None, scenario=None,
-                          tele=None) -> RoundProgram:
+                          tele=None, star: _StarWire = None) -> RoundProgram:
+    """The server-topology round: the sim's hops, or with ``star`` the same
+    hop list with the star's local update (this rank's client, its losses
+    gathered), wire (the collective aggregator) and SCAFFOLD control (a
+    dense all-reduce); FedDANE's gradient round and CMFL stay on the sim,
+    as in the reference."""
+    simulator = star is None
 
     def hop_rng(ctx):
         # the reference's split: (local, downlink, selection, uplink,
@@ -612,6 +736,23 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                    new_ci=new_ci)
         return ctx
 
+    def hop_star_local_update(ctx):
+        # the rank's own client (the dispatch is built for one), from its
+        # slice of the batch; the (C,) losses every rank needs for the
+        # selection and the metrics are gathered
+        st = ctx["state"]
+        kw = {}
+        if dispatch.epoch_steps is not None:
+            n_steps, ctx["scn_escale"] = scn_mod.epoch_steps(
+                scenario, fl.local_steps, _resources(ctx))
+            kw["n_steps"] = n_steps[star.idx:star.idx + 1]
+        deltas, losses, first_losses, new_ci = dispatch.client_updates(
+            ctx.pop("params"), Dispatch.model_batch(ctx["batch"]),
+            control=st.control, client_controls=st.client_controls, **kw)
+        ctx.update(deltas=deltas, losses=star.gather(losses),
+                   first_losses=star.gather(first_losses), new_ci=new_ci)
+        return ctx
+
     def hop_cohort(ctx):
         # this round's client ids, pure in (population.seed, round): the
         # data pipeline (cohort_data_fn) computes the same ids
@@ -621,8 +762,7 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
     def _resources(ctx):
         res = ctx["batch"].get("resources")
         if res is None:
-            res = torch.ones((C, 4), dtype=torch.float32,
-                             device=ctx["losses"].device)
+            res = torch.ones((C, 4), dtype=torch.float32, device=device)
         return res
 
     def _select(ctx, availability=None):
@@ -731,6 +871,32 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                    n_sel=(weights > 0).sum().to(torch.float32))
         return ctx
 
+    def hop_star_wire(ctx):
+        # encode -> collective -> decode -> aggregate; this rank's pipeline
+        # row rides along
+        weights = ctx["weights"]
+        agg, new_comm = star.aggregate(ctx.pop("deltas"), weights,
+                                       ctx["r_up"], ctx["state"].comm_state)
+        ctx.update(agg=agg, new_comm=new_comm,
+                   n_sel=(weights > 0).sum().to(torch.float32))
+        return ctx
+
+    def hop_star_control(ctx):
+        # SCAFFOLD on the star: this rank's c_i row (kept when unselected),
+        # the weighted mean of the rows' changes over a dense all-reduce
+        st, weights = ctx["state"], ctx["weights"]
+        keep = not bool(weights[star.idx] > 0)
+        new_ci, dci = {}, {}
+        for n, new in ctx["new_ci"].items():
+            old = st.client_controls[n]
+            new_ci[n] = old.clone() if keep else new
+            dci[n] = new_ci[n] - old
+        agg_dc = star.aggregate_dense(dci, weights, ctx["r_up"])
+        ctx.update(new_ci=new_ci, control={
+            n: st.control[n] + (ctx["n_sel"] / C) * agg_dc[n]
+            for n in new_ci})
+        return ctx
+
     def hop_control(ctx):
         # SCAFFOLD's control variates, leaf by leaf: unselected clients
         # keep their c_i; the server control moves by n_sel / C times the
@@ -809,7 +975,8 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
             control=ctx.get("control"), client_controls=ctx.get("new_ci"),
             comm_state=ctx["new_comm"], rng=ctx["r_next"],
             round=st.round + 1,
-            prev_delta=ctx["agg"] if fl.cmfl_threshold > 0 else None)
+            prev_delta=(ctx["agg"] if simulator and fl.cmfl_threshold > 0
+                        else None))
         return ctx
 
     if population is not None and population.availability_active:
@@ -824,18 +991,21 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
     if population is not None:
         hops.append(("cohort", hop_cohort))
     hops.append(("downlink", hop_downlink))
-    if fl.algorithm == "feddane":
+    if simulator and fl.algorithm == "feddane":
         hops.append(("dane_gradient", hop_dane_gradient))
-    hops += [("local_update", hop_local_update), ("select", select)]
+    hops += [("local_update", hop_local_update if simulator
+              else hop_star_local_update), ("select", select)]
     if dropout:
         hops.append(("scenario_dropout", hop_scenario_dropout))
-    if fl.cmfl_threshold > 0:
+    if simulator and fl.cmfl_threshold > 0:
         hops.append(("cmfl", hop_cmfl))
     # a stateless pipeline keeps no per-client rows: no store
-    hops.append(("wire", hop_population_wire if store is not None
+    hops.append(("wire", hop_star_wire if not simulator
+                 else hop_population_wire if store is not None
                  else hop_wire))
     if fl.algorithm == "scaffold":
-        hops.append(("control", hop_control))
+        hops.append(("control", hop_control if simulator
+                     else hop_star_control))
     hops += [("server_opt", hop_server_opt), ("ledger", hop_ledger)]
     if tele is not None:
         hops.append(("telemetry", hop_telemetry))
@@ -898,6 +1068,477 @@ def _build_sim(model: Model, fl: FLConfig, topo: Topology, chunk: int,
                        aux=aux)
 
 
+# ---------------------------------------------------------------------------
+# star / hier / gossip: one client per rank of a mesh
+# ---------------------------------------------------------------------------
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
+def _gather_cat(mesh, axes):
+    """(1,) per rank -> the (C,) tensor of the ranks along ``axes``."""
+    return lambda v: torch.cat(aggregation.all_gather(
+        v.reshape(1), mesh, axes, "metrics"))
+
+
+def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
+                device, population=None) -> RoundEngine:
+    """The star: each rank trains its own client from the replicated
+    params, and the uplink is the collective aggregator
+    (:func:`repro_torch.core.aggregation.make_aggregator`).  A rank's state
+    is the params, the server optimizer's state and SCAFFOLD's server
+    control (all replicated), its own pipeline row and its own ``c_i``
+    row; its batch is its client's slice with the (C,) metadata."""
+    if population is not None:
+        raise not_ported("a ClientPopulation on the star topology (the "
+                         "star's population leg, _star_population_wire)",
+                         "repro.core.engine")
+    client_axis = topo.client_axis or model.cfg.client_axis
+    if client_axis == "pod":
+        raise not_ported("pod-level clients (client_axis='pod', the FSDP "
+                         "configs)", "repro.models.sharding")
+    axes = aggregation.client_axes(mesh, client_axis)
+    C = 1
+    for a in axes:
+        C *= mesh.shape[a]
+    idx = aggregation.client_index(axes, mesh)
+    terms, up, down = ledger_terms(model, fl)
+    scaffold = fl.algorithm == "scaffold"
+    scenario = _fl_scenario(fl)
+    # the rank's own client: a dispatch body of one
+    dispatch = make_dispatch(model, fl, up, down, 1, chunk,
+                             scenario=scenario)
+    dense = (aggregation.make_aggregator(mesh, Identity(), client_axis,
+                                         hop="dense") if scaffold else None)
+    star = _StarWire(
+        idx=idx,
+        aggregate=aggregation.make_aggregator(mesh, up, client_axis),
+        aggregate_dense=(lambda t, w, r: dense(t, w, r, None)[0])
+        if scaffold else None,
+        gather=_gather_cat(mesh, axes))
+    tele = _telemetry_spec(fl, up, down, model.param_sizes())
+    program = _build_server_program(fl, terms, dispatch, C, device=device,
+                                    scenario=scenario, tele=tele, star=star)
+
+    def state_from_params(params):
+        def zeros(lead=()):
+            return {n: torch.zeros(lead + tuple(p.shape),
+                                   dtype=torch.float32, device=p.device)
+                    for n, p in params.items()}
+        return FLState(
+            params=params,
+            server_opt_state=server_opt.init_state(fl.server_opt, params),
+            control=zeros() if scaffold else None,
+            client_controls=zeros((1,)) if scaffold else None,
+            comm_state=(comm_state_init(up, params, 1, device)
+                        if up.stateful else None),
+            rng=PRNGKey(fl.seed), round=0)
+
+    def init_fn(seed=0):
+        return state_from_params(model.init(seed, device))
+
+    def local_batch(batch):
+        """The client's slice of the model inputs; the (C,) metadata whole
+        (the selection hop reads every client's)."""
+        return {k: v if k in ("sizes", "resources", "ids")
+                else v[idx:idx + 1] for k, v in batch.items()}
+
+    return RoundEngine(topology=topo, round_fn=program, init_fn=init_fn,
+                       state_from_params=state_from_params, n_clients=C,
+                       terms=terms, device=device,
+                       aux=({"telemetry": tele} if tele is not None else {}),
+                       mesh=mesh, local_batch=local_batch)
+
+
+def _build_hier(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
+                device) -> RoundEngine:
+    """Client -> edge (pod) -> cloud.  Every round each pod aggregates its
+    clients' payloads over its ``data`` group (the edge hop) and steps its
+    own model; every ``sync_every`` rounds the pods' models also average
+    over each ``pod`` group, quantized with ``pod_compressor`` (the cloud
+    hop).  A rank's state is its pod's params and server-optimizer state
+    and its own (1, 1)-led pipeline row; its batch is its client's
+    ``[pod, data]`` slice of a (G, Ce, ...) batch."""
+    if "pod" not in mesh.axis_names:
+        raise AssertionError("hierarchical FL needs a pod axis")
+    if fl.algorithm == "scaffold":
+        raise AssertionError(
+            "hierarchical topology keeps no server control-variate state; "
+            "use fedavg/fedsgd/fedprox (or the star topology for SCAFFOLD)")
+    G, Ce = mesh.shape["pod"], mesh.shape["data"]
+    gi, ci = mesh.axis_index("pod"), mesh.axis_index("data")
+    # the edge hop runs the full uplink pipeline (EF / DGC included)
+    up = uplink_pipeline(fl)
+    pod_comp = make_compressor(fl.pod_compressor, block=fl.qsgd_block,
+                               backend=fl.backend,
+                               wire_format=fl.wire_format)
+    stateful, masked = up.stateful, has_mask_ctx(up)
+    nparams = model.param_sizes()
+    bind_n_leaves(up, len(nparams))   # dpnoise: joint clip over all leaves
+    terms = {
+        "edge_wire": sum(up.wire_bits(n) for n in nparams) / 8.0 * Ce * G,
+        "cloud_wire": sum(pod_comp.wire_bits(n) for n in nparams) / 8.0 * G,
+        "dense": sum(32.0 * n for n in nparams) / 8.0 * Ce * G,
+    }
+    # one spec for both programs: the edge stages are static per-round
+    # bytes, and the appended pod slot is the residual against the round's
+    # own ledger (0 on edge rounds, cloud_wire on cloud rounds)
+    tele = None
+    if fl.telemetry:
+        tele = obs_tel.telemetry_spec(
+            up, None, nparams, up_scale=float(Ce * G),
+            extra_up=((f"pod:{fl.pod_compressor}", terms["cloud_wire"]),))
+    everyone = _gather_cat(mesh, ("pod", "data"))
+
+    def agg_edge(deltas, weights, rng, comm_state):
+        """The edge hop: this pod's weighted mean of its clients' decoded
+        payloads, the payloads gathered over the pod's data group; the
+        rank's pipeline row stays with it."""
+        wrow = weights[gi]
+        out, st_out = {}, []
+        for li, (name, leaf) in enumerate(deltas.items()):
+            flat = leaf.reshape(-1).to(torch.float32)
+            n = flat.shape[0]
+            r = rng.fold_in(li).fold_in(gi * Ce + ci)
+            if up.is_identity:
+                tot = aggregation.all_reduce_sum(wrow[ci] * flat, mesh,
+                                                 ("data",), "edge")
+                edge = tot / torch.clamp(wrow.sum(), min=1e-9)
+            else:
+                st = (_index_state(comm_state[li], (0, 0)) if stateful
+                      else up.init((n,), device=flat.device))
+                if masked:
+                    # a mask ring per pod over its data group (cohort Ce)
+                    mkey = rng.fold_in(MASK_TAG).fold_in(li).fold_in(gi)
+                    st = inject_mask_ctx(st, mkey, ci, Ce)
+                payload, new_st = up.encode(st, r, flat)
+                rows = aggregation.gather_payload(up, payload, mesh,
+                                                  ("data",), "edge")
+                dec = torch.stack([up.decode(p, n) for p in rows])
+                edge = (wrow[:, None] * dec).sum(0) / \
+                    torch.clamp(wrow.sum(), min=1e-9)
+                if stateful:
+                    st_out.append(aggregation.lead_state(new_st, 2))
+            out[name] = edge.reshape(leaf.shape).to(leaf.dtype)
+        return out, (tuple(st_out) if stateful else None)
+
+    def sync_models(params, rng):
+        """The cloud hop: the pods' models averaged over each pod group,
+        quantized with ``pod_compressor``; every pod leaves with the same
+        model."""
+        out = {}
+        for li, (name, leaf) in enumerate(params.items()):
+            flat = leaf.reshape(-1).to(torch.float32)
+            r = rng.fold_in(li)
+            if pod_comp.is_identity:
+                synced = aggregation.all_reduce_sum(
+                    flat, mesh, ("pod",), "cloud") / G
+            else:
+                pay, _ = pod_comp.encode(
+                    pod_comp.init(flat.shape, device=flat.device),
+                    r.fold_in(gi), flat)
+                rows = aggregation.gather_payload(pod_comp, pay, mesh,
+                                                  ("pod",), "cloud")
+                synced = torch.stack([pod_comp.decode(p, flat.shape[0])
+                                      for p in rows]).sum(0) / G
+            out[name] = synced.reshape(leaf.shape).to(leaf.dtype)
+        return out
+
+    def pod_divergence(params):
+        """Mean squared distance of the pods' models from their mean, probed
+        on the first 4,096 entries of the largest leaf (the reference's
+        probe: a full-model version costs a model-sized pod all-reduce);
+        the probes cross the pod group."""
+        name = sorted(params, key=lambda k: -params[k].numel())[0]
+        probe = params[name].reshape(-1)[:4096].to(torch.float32)
+        probe = torch.stack(aggregation.all_gather(probe, mesh, ("pod",),
+                                                   "metrics"))
+        return ((probe - probe.mean(0, keepdim=True)) ** 2).mean()
+
+    def make_program(cloud: bool) -> RoundProgram:
+        def hop_rng(ctx):
+            r_loc, r_up, r_next = ctx["state"].rng.split(3)
+            ctx.update(r_up=r_up, r_next=r_next)
+            return ctx
+
+        def hop_local_update(ctx):
+            mb = {k: v for k, v in ctx["batch"].items() if k != "sizes"}
+            delta, loss, _, _ = _client_update(model, fl, ctx["state"].params,
+                                               mb, chunk)
+            ctx.update(deltas=delta, losses=everyone(loss))
+            return ctx
+
+        def hop_wire(ctx):
+            weights = ctx["batch"].get("sizes")
+            if weights is None:
+                weights = torch.ones((G, Ce), dtype=torch.float32,
+                                     device=device)
+            agg, new_comm = agg_edge(ctx.pop("deltas"), weights,
+                                     ctx["r_up"], ctx["state"].comm_state)
+            ctx.update(agg=agg, new_comm=new_comm)
+            return ctx
+
+        def hop_server_opt(ctx):
+            st = ctx["state"]
+            new_params, new_sos = server_opt.apply(fl, st.params, ctx["agg"],
+                                                   st.server_opt_state)
+            ctx.update(new_params=new_params, new_sos=new_sos)
+            return ctx
+
+        def hop_cloud_sync(ctx):
+            ctx["new_params"] = sync_models(ctx["new_params"],
+                                            ctx["r_up"].fold_in(99))
+            return ctx
+
+        def hop_ledger(ctx):
+            wire = terms["edge_wire"] + (terms["cloud_wire"] if cloud
+                                         else 0.0)
+            rho = up.dp_rho_per_round()
+            ctx["ledger"] = CommLedger(
+                uplink_wire=_f32(wire, device),
+                uplink_entropy=_f32(wire, device),
+                downlink_wire=_f32(0.0, device),
+                uplink_dense=_f32(terms["dense"], device),
+                downlink_dense=_f32(0.0, device),
+                dp_rho=_f32(rho * Ce * G, device) if rho else None)
+            return ctx
+
+        def hop_telemetry(ctx):
+            ctx["round_stats"] = obs_tel.round_stats(
+                tele, ctx["ledger"], up_unit=_f32(1.0, device),
+                selected=_f32(Ce * G, device),
+                available=_f32(Ce * G, device))
+            return ctx
+
+        def hop_finalize(ctx):
+            st = ctx["state"]
+            ctx["metrics"] = {
+                "loss": ctx["losses"].mean(),
+                "ledger": ctx["ledger"],
+                "pod_divergence": pod_divergence(ctx["new_params"]),
+            }
+            if tele is not None:
+                ctx["metrics"]["round_stats"] = ctx["round_stats"]
+            ctx["new_state"] = FLState(
+                params=ctx["new_params"], server_opt_state=ctx["new_sos"],
+                control=None, client_controls=None,
+                comm_state=ctx["new_comm"], rng=ctx["r_next"],
+                round=st.round + 1)
+            return ctx
+
+        hops = [("rng", hop_rng), ("local_update", hop_local_update),
+                ("edge_wire", hop_wire), ("server_opt", hop_server_opt)]
+        if cloud:
+            hops.append(("cloud_sync", hop_cloud_sync))
+        hops.append(("ledger", hop_ledger))
+        if tele is not None:
+            hops.append(("telemetry", hop_telemetry))
+        hops.append(("finalize", hop_finalize))
+        return RoundProgram(hops=tuple(hops))
+
+    edge_program, cloud_program = make_program(False), make_program(True)
+
+    def round_fn(state, batch):
+        """The cloud program every ``sync_every``-th round, else the edge
+        program."""
+        if (state.round + 1) % topo.sync_every == 0:
+            return cloud_program(state, batch)
+        return edge_program(state, batch)
+
+    def state_from_params(params):
+        return FLState(
+            params=params,
+            server_opt_state=server_opt.init_state(fl.server_opt, params),
+            control=None, client_controls=None,
+            comm_state=(comm_state_init(up, params, (1, 1), device)
+                        if stateful else None),
+            rng=PRNGKey(fl.seed), round=0)
+
+    def init_fn(seed=0):
+        return state_from_params(model.init(seed, device))
+
+    def local_batch(batch):
+        """The client's ``[pod, data]`` slice of (G, Ce, ...) model inputs;
+        ``sizes`` (G, Ce) whole."""
+        return {k: v if k == "sizes" else v[gi, ci] for k, v in batch.items()}
+
+    return RoundEngine(
+        topology=topo, round_fn=round_fn, init_fn=init_fn,
+        state_from_params=state_from_params, n_clients=G * Ce, terms=terms,
+        device=device, mesh=mesh, local_batch=local_batch,
+        programs={"edge": edge_program, "cloud": cloud_program},
+        aux={"n_pods": G, "clients_per_pod": Ce,
+             **({"telemetry": tele} if tele is not None else {})})
+
+
+def _build_gossip(model: Model, fl: FLConfig, topo: Topology, mesh,
+                  chunk: int, device) -> RoundEngine:
+    """Decentralized mixing over the ``data`` axis: every node keeps its own
+    model, takes a local SGD step, then mixes in its in-neighbours' decoded
+    payloads point to point, one ``ppermute`` per graph entry.  A rank's
+    state is its node's params and its own (1,)-led pipeline row; its
+    batch is its node's slice of a (C, ...) batch."""
+    C = mesh.shape["data"]
+    me = mesh.axis_index("data")
+    # biased compressors gossip with error feedback, but not DGC momentum:
+    # DGC accumulates update deltas and the mix ships raw parameters
+    if fl.dgc_momentum > 0.0:
+        raise ValueError(
+            "dgc_momentum accumulates update deltas; the gossip mix ships "
+            "raw model parameters — use error feedback (the default for "
+            "biased pipelines) instead")
+    comp = _make_uplink(fl, fl.topk_fraction)
+    comp = _apply_privacy(fl, comp)
+    if comp.biased and fl.error_feedback:
+        comp = error_feedback(comp)
+    stateful, masked = comp.stateful, has_mask_ctx(comp)
+    check_doubly_stochastic(mixing_matrix(topo.graph, C))
+    perms = [(_graph_edges(spec, C), w) for spec, w in topo.graph]
+    # the self weight is 1 - the weights of the edges into the node (a node
+    # no edge of a permutation targets receives zeros)
+    self_w = 1.0
+    for edges, w in perms:
+        for _, dst in edges:
+            if dst == me:
+                self_w -= w
+    self_w = _f32(np.float32(self_w), device)
+    nparams = model.param_sizes()
+    bind_n_leaves(comp, len(nparams))
+    payload_bytes = sum(comp.wire_bits(n) for n in nparams) / 8.0
+    n_edges = sum(len(edges) for edges, _ in perms)
+    terms = {
+        # every payload crossing a directed edge counts once
+        "mix_wire": payload_bytes * n_edges,
+        "dense": sum(32.0 * n for n in nparams) / 8.0 * n_edges,
+    }
+    tele = (obs_tel.telemetry_spec(comp, None, nparams,
+                                   up_scale=float(n_edges))
+            if fl.telemetry else None)
+
+    def mix(params, rng, comm_state):
+        out, st_out = {}, []
+        for li, (name, leaf) in enumerate(params.items()):
+            flat = leaf.reshape(-1).to(torch.float32)
+            n = flat.shape[0]
+            r = rng.fold_in(li)
+            st = (_index_state(comm_state[li], 0) if stateful
+                  else comp.init((n,), device=flat.device))
+            if masked:
+                # the ring spans all C nodes; a decode unmasks per sender
+                st = inject_mask_ctx(st, rng.fold_in(MASK_TAG).fold_in(li),
+                                     me, C)
+            payload, new_st = comp.encode(st, r, flat)
+            mixed = self_w * flat
+            for edges, w in perms:
+                src = [s for s, d in edges if d == me]
+                nb = aggregation.permute_payload(
+                    comp, payload, mesh, "data", edges,
+                    src[0] if src else None, "mix")
+                dec = comp.decode(nb, n)
+                mixed = mixed + scalar_like(w, dec) * dec
+            out[name] = mixed.reshape(leaf.shape).to(leaf.dtype)
+            if stateful:
+                st_out.append(aggregation.lead_state(new_st, 1))
+        return out, (tuple(st_out) if stateful else None)
+
+    everyone = _gather_cat(mesh, ("data",))
+
+    def hop_rng(ctx):
+        r_mix, r_next = ctx["state"].rng.split(2)
+        ctx.update(r_mix=r_mix, r_next=r_next)
+        return ctx
+
+    def hop_local_update(ctx):
+        p = ctx["state"].params
+        loss, g = _value_and_grad(model, p, ctx["batch"], chunk)
+        ctx.update(params={n: (a.to(torch.float32)
+                               - g[n].to(torch.float32) * fl.local_lr)
+                           .to(a.dtype) for n, a in p.items()},
+                   losses=everyone(loss))
+        return ctx
+
+    def hop_mix(ctx):
+        params, new_comm = mix(ctx["params"], ctx["r_mix"],
+                               ctx["state"].comm_state)
+        ctx.update(params=params, new_comm=new_comm)
+        return ctx
+
+    def hop_ledger(ctx):
+        rho = comp.dp_rho_per_round()
+        # every node releases one noised payload a round
+        ctx["ledger"] = CommLedger(
+            uplink_wire=_f32(terms["mix_wire"], device),
+            uplink_entropy=_f32(terms["mix_wire"], device),
+            downlink_wire=_f32(0.0, device),
+            uplink_dense=_f32(terms["dense"], device),
+            downlink_dense=_f32(0.0, device),
+            dp_rho=_f32(rho * C, device) if rho else None)
+        return ctx
+
+    def hop_telemetry(ctx):
+        ctx["round_stats"] = obs_tel.round_stats(
+            tele, ctx["ledger"], up_unit=_f32(1.0, device),
+            selected=_f32(C, device), available=_f32(C, device))
+        return ctx
+
+    def consensus(params):
+        # mean squared distance to the mean model: the node mean is one f32
+        # all-reduce of the model (a metric, outside the mix's bytes), the
+        # squared distances one scalar all-reduce
+        sq = torch.zeros((), dtype=torch.float32, device=device)
+        size = 0
+        for leaf in params.values():
+            x = leaf.to(torch.float32)
+            mean = aggregation.all_reduce_sum(x, mesh, ("data",),
+                                              "metrics") / C
+            sq = sq + ((x - mean) ** 2).sum()
+            size += x.numel() * C
+        return aggregation.all_reduce_sum(sq, mesh, ("data",),
+                                          "metrics") / size
+
+    def hop_finalize(ctx):
+        ctx["metrics"] = {"loss": ctx["losses"].mean(),
+                          "consensus": consensus(ctx["params"]),
+                          "ledger": ctx["ledger"]}
+        if tele is not None:
+            ctx["metrics"]["round_stats"] = ctx["round_stats"]
+        ctx["new_state"] = FLState(
+            params=ctx["params"], server_opt_state={},
+            control=None, client_controls=None,
+            comm_state=ctx["new_comm"], rng=ctx["r_next"],
+            round=ctx["state"].round + 1)
+        return ctx
+
+    hops = [("rng", hop_rng), ("local_update", hop_local_update),
+            ("mix", hop_mix), ("ledger", hop_ledger)]
+    if tele is not None:
+        hops.append(("telemetry", hop_telemetry))
+    hops.append(("finalize", hop_finalize))
+    program = RoundProgram(hops=tuple(hops))
+
+    def state_from_params(params):
+        return FLState(params=params, server_opt_state={}, control=None,
+                       client_controls=None,
+                       comm_state=(comm_state_init(comp, params, 1, device)
+                                   if stateful else None),
+                       rng=PRNGKey(fl.seed), round=0)
+
+    def init_fn(seed=0):
+        return state_from_params(model.init(seed, device))
+
+    def local_batch(batch):
+        """The node's slice of (C, ...) model inputs."""
+        return {k: v[me] for k, v in batch.items()
+                if k not in ("sizes", "resources", "ids")}
+
+    return RoundEngine(topology=topo, round_fn=program, init_fn=init_fn,
+                       state_from_params=state_from_params, n_clients=C,
+                       terms=terms, device=device, mesh=mesh,
+                       local_batch=local_batch,
+                       aux=({"telemetry": tele} if tele is not None else {}))
+
+
 # above this client count a dense sim build would allocate O(C x model)
 # comm_state rows; the build refuses and points at the streaming path
 POPULATION_DENSE_LIMIT = 4096
@@ -922,7 +1563,7 @@ def _check_population(fl: FLConfig, topology: Topology) -> None:
 
 def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
                       chunk: int = 512, device=None, data_fn=None,
-                      population=None) -> RoundEngine:
+                      population=None, mesh=None) -> RoundEngine:
     """Build the round executor for one (model, fl, topology) binding on
     ``device`` (``cuda`` unless ``device="cpu"`` is asked for).
 
@@ -931,20 +1572,48 @@ def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
     keyed on the server version at dispatch (:mod:`repro_torch.core
     .async_engine`).
 
+    ``star``, ``hier`` and ``gossip`` need ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh` over the initialised process
+    group) and build this rank's engine, on the mesh's device unless
+    ``device`` is given.
+
     ``population`` (a :class:`repro_torch.core.population
     .ClientPopulation`) switches the sim and async rounds to streaming
     cohorts: each round or generation touches ``population.cohort``
     sampled clients, and per-client pipeline state lives in a bounded
     residual store.  Dense builds above ``POPULATION_DENSE_LIMIT`` clients
     with a stateful uplink are rejected."""
+    kind = topology.kind
+    if population is not None and kind in ("hier", "gossip"):
+        raise ValueError(
+            f"{kind} topology pins every client to a mesh device — "
+            f"a streaming ClientPopulation only applies to star/sim/async")
+    if kind in ("hier", "gossip") and _fl_scenario(fl) is not None:
+        raise ValueError(
+            f"scenario client dynamics (FLConfig.scenario_*) thread through "
+            f"the star/sim/async round programs; the {kind} "
+            f"topology has no per-client selection/weighting hop to mask")
+    if kind in ("star", "hier", "gossip"):
+        if mesh is None:
+            raise ValueError(f"{kind} topology needs a mesh")
+        dev = mesh.device if device is None else resolve_device(device)
+        if kind == "star":
+            engine = _build_star(model, fl, topology, mesh, chunk, dev,
+                                 population=population)
+        elif kind == "hier":
+            engine = _build_hier(model, fl, topology, mesh, chunk, dev)
+        else:
+            engine = _build_gossip(model, fl, topology, mesh, chunk, dev)
+        engine.eval_every = max(1, int(fl.eval_every))
+        return engine
+    if kind not in ("sim", "async"):
+        raise ValueError(f"unknown topology kind {kind!r}")
     dev = resolve_device(device)
-    if topology.kind not in ("sim", "async"):
-        raise not_ported(f"topology {topology.kind!r}", "repro.core.engine")
     if topology.n_clients <= 0:
-        raise ValueError(f"{topology.kind} topology needs n_clients > 0")
+        raise ValueError(f"{kind} topology needs n_clients > 0")
     if population is None:
         _check_population(fl, topology)
-    if topology.kind == "async":
+    if kind == "async":
         from repro_torch.core.async_engine import build_async_engine
         engine = build_async_engine(model, fl, topology, data_fn, chunk,
                                     dev, population=population)
@@ -992,7 +1661,9 @@ def stack_rows(rows):
 
 def run_rounds(engine: RoundEngine, state, data_fn, n: int, metrics_fn=None,
                eval_every=None, tracer=None):
-    """Run ``n`` rounds; ``data_fn(round_idx) -> batch``.  Returns
+    """Run ``n`` rounds; ``data_fn(round_idx) -> batch`` (on a mesh the
+    round's global batch, which ``engine.local_batch`` cuts to the rank's
+    part).  Returns
     ``(final_state, metrics)`` with every metric stacked over a leading
     (n,) round dim (the ledger as a CommLedger of (n,) tensors, the
     telemetry as a RoundStats).  On the ``async`` topology a round is one
@@ -1032,6 +1703,8 @@ def _run(engine, state, data_fn, n, metrics_fn, eval_every, tracer):
         due = state.round % ee == ee - 1
         batch = None if engine.topology.kind == "async" else \
             data_fn(state.round)
+        if batch is not None and engine.local_batch is not None:
+            batch = engine.local_batch(batch)
         if tracer is None:
             state, m = engine.round_fn(state, batch)
         else:

@@ -72,13 +72,35 @@ reference's npz format (``repro_torch.checkpoint``):
         --trace run.jsonl --profile-dir prof --checkpoint ckpt.npz
     PYTHONPATH=src python -m repro_torch.obs.report run.jsonl
 
+``--nproc N`` (the reference's ``--devices``) runs the deployment path:
+N ranks of a ``torch.distributed`` group, spawned here, each one client,
+with ``--dist-backend`` nccl (rank r on ``cuda:r``, one card each) or
+gloo (every rank on ``cuda:0``, or on the CPU with ``--device cpu``).
+Without ``--population`` or ``--async`` that is the star: every round's
+uplink is a collective whose operand is the encoded payload.
+``--hierarchical`` runs client -> edge -> cloud on a (pod, data) mesh of
+2 pods when N is even and above 1 (else 1), the cloud hop every
+``--sync-every`` rounds.  Rank 0 prints.  In a process that already is a
+rank of an N-rank group, ``main`` runs that rank's part instead of
+spawning:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 \
+        --device cpu --dist-backend gloo --compressor "topk:0.05>>qsgd:8"
+    PYTHONPATH=src python -m repro_torch.launch.train --nproc 2 \
+        --dist-backend gloo --hierarchical --sync-every 2
+
+One card cannot hold two NCCL ranks of one communicator, so on one card
+several ranks share it over gloo (staging each collective through the
+host) and NCCL runs at one rank.  ``--model-parallel`` above 1 (the model
+axis) is not ported.
+
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
-``--device cpu`` is given.  The reference CLI's mesh and hierarchical
-options are not ported yet.
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 
@@ -161,6 +183,21 @@ def _parse(argv=None):
                          "completion-time quantile; 0 disables")
     ap.add_argument("--scenario-seed", type=int, default=0,
                     help="seed for the scenario's phase and dropout draws")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="run N ranks of a torch.distributed group, one "
+                         "client each (the star, or --hierarchical); 0 = "
+                         "the single-process sim path")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="process-group backend with --nproc: nccl puts "
+                         "rank r on cuda:r, gloo puts every rank on cuda:0 "
+                         "(or on the CPU with --device cpu)")
+    ap.add_argument("--hierarchical", action="store_true",
+                    help="with --nproc: client -> edge (pod) -> cloud")
+    ap.add_argument("--sync-every", type=int, default=4,
+                    help="hierarchical: the cloud hop's period in rounds")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the model axis' size (only 1 is ported)")
     ap.add_argument("--seq", type=int, default=48)
     ap.add_argument("--batch-per-client", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -220,6 +257,8 @@ def _finish(args, tracer, engine, ms, params):
 
 def main(argv=None):
     args = _parse(argv)
+    if args.nproc > 0 or args.hierarchical:
+        return _spawn(args, argv)
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -306,6 +345,152 @@ def main(argv=None):
     print(f"{args.rounds} rounds in {secs:.2f}s on {device}")
     _finish(args, tracer, sim.engine, ms, state.params)
     return state, ms
+
+
+def _spawn(args, argv):
+    """--nproc: check the request, then run the ranks (spawned: CUDA does
+    not survive fork) and wait for them; rank 0 prints."""
+    from repro_torch.device import not_ported, resolve_device
+    from repro_torch.launch.mesh import run_ranks
+    if args.model_parallel > 1:
+        raise not_ported("--model-parallel > 1 (the model axis)",
+                         "repro.models.sharding")
+    if args.nproc < 1:
+        raise ValueError("--hierarchical runs on a mesh of ranks: give "
+                         "--nproc N")
+    if args.population > 0 or args.async_mode:
+        raise ValueError("--nproc runs the star (or --hierarchical) "
+                         "topology; --population and --async run in one "
+                         "process")
+    if args.trace or args.profile_dir or args.checkpoint:
+        raise not_ported("--trace / --profile-dir / --checkpoint with "
+                         "--nproc", "repro.launch.train")
+    resolve_device(args.device)          # no card and no --device cpu: fail
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        # already a rank of a group of --nproc ranks: run this rank's part
+        if (dist.get_world_size(), dist.get_backend()) != (
+                args.nproc, args.dist_backend):
+            raise ValueError(
+                f"this process is a rank of a {dist.get_world_size()}-rank "
+                f"{dist.get_backend()} group, not --nproc {args.nproc} "
+                f"--dist-backend {args.dist_backend}")
+        return _rank_main(dist.get_rank(), args.nproc, None, args)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    run_ranks(_rank_entry, args.nproc, args=(argv,))
+
+
+def _rank_entry(rank, nproc, init_method, argv):
+    _rank_main(rank, nproc, init_method, _parse(argv))
+
+
+def _rank_main(rank, nproc, init_method, args):
+    """One rank of --nproc: join the group (``init_method`` None: the
+    process already is a rank of one), build the star or hier engine for
+    this rank's client, run the rounds; rank 0 prints."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import Topology, make_round_engine, \
+        run_rounds
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.synthetic import (FedDataConfig, eval_batch,
+                                            sample_round)
+    from repro_torch.launch.mesh import init_ranks, make_mesh, rank_device
+    from repro_torch.models.model import Model
+
+    if init_method is None:
+        dev = rank_device(args.dist_backend, args.device, rank, nproc)
+    else:
+        dev = init_ranks(args.dist_backend, args.device, rank, nproc,
+                         init_method)
+    try:
+        cfg = get_arch(args.arch)
+        if cfg.family in FRONTEND_INPUTS:
+            raise ValueError(f"--arch {args.arch}: the {cfg.family} family "
+                             f"needs frontend embeddings the FL data does "
+                             f"not carry")
+        model = Model(cfg)
+        fl = FLConfig(algorithm=args.algorithm, local_steps=args.local_steps,
+                      local_lr=args.local_lr,
+                      uplink_compressor=args.compressor,
+                      downlink_compressor=args.downlink,
+                      backend=args.backend, server_opt=args.server_opt,
+                      selection=args.selection,
+                      clients_per_round=args.clients_per_round,
+                      eval_every=args.eval_every if args.eval_every > 0
+                      else 8, hierarchical=args.hierarchical,
+                      sync_every=args.sync_every,
+                      scenario_trace=args.scenario_trace,
+                      scenario_period=args.scenario_period,
+                      scenario_availability=args.scenario_availability,
+                      scenario_dropout=args.scenario_dropout,
+                      scenario_epoch_scale=args.scenario_epoch_scale,
+                      scenario_seed=args.scenario_seed, seed=args.seed)
+        if args.hierarchical:
+            G = 2 if nproc > 1 and nproc % 2 == 0 else 1
+            mesh = make_mesh({"pod": G, "data": nproc // G, "model": 1}, dev)
+            topo = Topology.hier(args.sync_every)
+        else:
+            mesh = make_mesh({"data": nproc, "model": 1}, dev)
+            topo = Topology.star()
+        engine = make_round_engine(model, fl, topo, chunk=args.seq,
+                                   mesh=mesh)
+        devices = [None] * nproc
+        dist.all_gather_object(devices, str(dev))
+        lead = rank == 0
+        if lead:
+            print(f"{topo.kind} mesh={mesh.shape} ranks={nproc} "
+                  f"backend={mesh.backend} devices={devices} "
+                  f"arch={cfg.name} params={model.param_count():,} "
+                  f"uplink={args.compressor} backend={args.backend}"
+                  + (f" pod={fl.pod_compressor} sync_every="
+                     f"{args.sync_every}" if args.hierarchical else ""),
+                  flush=True)
+        data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=nproc,
+                             seq_len=args.seq,
+                             batch_per_client=args.batch_per_client,
+                             heterogeneity=1.5, seed=args.seed)
+        shape = (mesh.shape.get("pod", 1), mesh.shape["data"])
+
+        def data_fn(r):
+            b = sample_round(data, r, dev)
+            if args.hierarchical:
+                return {k: v.reshape(shape + tuple(v.shape[1:]))
+                        for k, v in b.items()
+                        if k in ("tokens", "labels", "mask")}
+            return b
+        ev = eval_batch(data, 99, batch_size=4, device=dev)
+
+        def metrics_fn(st, m):
+            with torch.no_grad():
+                loss = model.loss(st.params, ev, chunk=args.seq)[0]
+            return dict(m, eval_loss=loss)
+
+        state = engine.init_fn(args.seed)
+        t0 = time.perf_counter()
+        state, ms = run_rounds(engine, state, data_fn, args.rounds,
+                               metrics_fn=metrics_fn)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        for i in range(args.rounds if lead else 0):
+            ev_loss = float(ms["eval_loss"][i])
+            extra = (f" pod_divergence={float(ms['pod_divergence'][i]):.3g}"
+                     if "pod_divergence" in ms else
+                     f" selected={int(ms['selected'][i])}")
+            print(f"round {i:>3} loss={float(ms['loss'][i]):.3f}{extra} "
+                  f"up={float(ms['ledger'].uplink_wire[i]) / 1e6:.2f}MB "
+                  f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x"
+                  + (f" eval={ev_loss:.3f}" if ev_loss == ev_loss else ""),
+                  flush=True)
+        if lead:
+            print(f"{args.rounds} rounds in {secs:.2f}s on {nproc} ranks",
+                  flush=True)
+    finally:
+        if init_method is not None:
+            dist.destroy_process_group()
 
 
 def _print_events(ms, n):

@@ -38,9 +38,11 @@ from repro_torch.core import engine as ET
 from repro_torch.core import population as pop_t
 from repro_torch.core.types import FLConfig
 from repro_torch.data import pipeline as pipe_t
-from test_torch_jaxkeys import JaxKey
+from test_torch_jaxkeys import JaxKey, one_torch_thread  # noqa: F401
 from test_torch_selection import (SPEC, batch_np, given_local_update,  # noqa: F401
                                   models, same_tree, to_jax, to_port)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 C, EVENTS = 4, 8
 BASE = dict(uplink_compressor=SPEC, local_steps=1, local_lr=0.2)
@@ -352,8 +354,9 @@ def test_async_unported_knobs_raise(kw, module, given_local_update,
     """The telemetry knob, once rejected here, now runs: 4 events whose
     ``RoundStats`` (one upload, the flush's downlink slots, the one-hot
     staleness, the buffer fill, the dropout) equal the reference's bit for
-    bit, as does the run; a topology the port still lacks raises naming
-    the reference module.  (Telemetry under secagg: test_torch_obs.py.)"""
+    bit, as does the run; the star's population leg, which the port still
+    lacks, raises naming the reference module.  (Telemetry under secagg:
+    test_torch_obs.py.)"""
     from repro_torch.core import scenario as scn_t
     monkeypatch.setattr(scn_t, "PRNGKey",
                         lambda seed: JaxKey(jax.random.PRNGKey(seed)))
@@ -368,11 +371,14 @@ def test_async_unported_knobs_raise(kw, module, given_local_update,
             np.testing.assert_array_equal(v.numpy(),
                                           np.asarray(getattr(rs_j, f)),
                                           err_msg=f"event {e} {f}")
+    from repro_torch.launch.mesh import Mesh
     _, mt = models()
+    mesh = Mesh(shape={"data": C, "model": 1}, rank=0,
+                device=torch.device("cpu"), backend="gloo", groups={})
     with pytest.raises(NotImplementedError, match=module):
-        ET.make_round_engine(mt, FLConfig(**kw),
-                             ET.Topology(kind="hier", n_clients=C),
-                             device="cpu", data_fn=_port_data)
+        ET.make_round_engine(mt, FLConfig(**kw), ET.Topology.star(),
+                             mesh=mesh, population=pop_t.ClientPopulation(
+                                 n_clients=100, cohort=C))
 
 
 @pytest.mark.parametrize("population", [False, True])

@@ -28,6 +28,9 @@ from repro_torch.compress import make_compressor
 from repro_torch.compress import sketch as sk_t
 from repro_torch.compress.pipeline import error_feedback
 from test_torch_jaxkeys import JaxKey, jax_hash_params
+from test_torch_jaxkeys import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CASES = ([c for c in STAGE_CASES if c["name"] in
           ("topk", "qsgd8", "qsgd4", "qsgd_block256", "sketch")]

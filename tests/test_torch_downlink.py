@@ -38,6 +38,9 @@ from repro_torch.models.model import Model
 from test_torch_engine import C, SEQ, _batches, _fl, _port_batch, \
     _port_state, _same_ledger, _tree_np, local_update_j
 from test_torch_jaxkeys import JaxKey, ieee_jit
+from test_torch_jaxkeys import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROUNDS = {"stc_lfl8": dict(spec="stc", downlink_compressor="lfl8",
                            topk_fraction=0.01),

@@ -49,6 +49,9 @@ from repro_torch.core.simulate import make_sim_step
 from repro_torch.core.types import FLConfig
 from repro_torch.models.model import Model
 from test_torch_jaxkeys import JaxKey, ieee_jit, quick_jit, to_torch
+from test_torch_jaxkeys import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SPECS = ["topk:0.05>>qsgd:8", "topk:0.05>>qsgd:4@fused"]
 C, SEQ, B = 2, 16, 2

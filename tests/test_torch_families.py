@@ -48,19 +48,11 @@ from repro_torch.models.model import Model
 from test_models import _cfgs as jax_family_cfgs
 from test_torch_engine import _flat_t, _port_batch, _port_state, \
     _same_ledger, _tree_np
+from test_torch_jaxkeys import one_torch_thread, quick_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, S = 2, 12
-
-
-def quick_jit(fn):
-    """``jax.jit`` at XLA's optimization level 0 and without the CPU
-    backend's fusion emitters, for reference programs whose bits are not
-    compared: without the emitters the gradients of the whole models
-    compile several times faster than under ``test_torch_jaxkeys``'s
-    ``quick_jit``."""
-    return jax.jit(fn, compiler_options={
-        "xla_backend_optimization_level": 0,
-        "xla_cpu_use_fusion_emitters": False})
 
 
 def port_cfg(cj):

@@ -20,6 +20,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch, repro_torch.launch.train\n"
         "import repro_torch.launch.serve, repro_torch.configs.shapes\n"
         "import repro_torch.optim.sgd, repro_torch.optim.adamw\n"
+        "import repro_torch.core.aggregation, repro_torch.core.federated\n"
+        "import repro_torch.core.hierarchical, repro_torch.core.gossip\n"
+        "import repro_torch.launch.mesh\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
@@ -41,6 +44,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch.core.types import FLConfig
     from repro_torch.data.synthetic import FedDataConfig, sample_round
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import init_ranks
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
     fl = FLConfig(uplink_compressor="topk:0.05>>qsgd:8", backend="kernel")
@@ -49,7 +53,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
                  lambda: sample_round(FedDataConfig(256, 2, 8, 1), 0),
                  lambda: train.main(["--rounds", "1"]),
                  lambda: model.init_cache(2, 16),
-                 lambda: serve.main(["--steps", "1"])):
+                 lambda: serve.main(["--steps", "1"]),
+                 lambda: init_ranks("gloo", None, 0, 2,
+                                    "tcp://127.0.0.1:1"),
+                 lambda: train.main(["--nproc", "2", "--dist-backend",
+                                     "gloo"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     sim = make_sim_step(model, fl, 2, device="cpu")
@@ -57,22 +65,36 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_knobs_raise_naming_the_reference_module():
+    """The star, hier and gossip topologies are ported (their guards are in
+    test_torch_topology.py); what stays out raises naming its module: a
+    population on the star, pod-level clients, a model axis above 1."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.population import ClientPopulation
     from repro_torch.core.types import FLConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
     fl = FLConfig(uplink_compressor="qsgd:8")
+    data4 = M.Mesh(shape={"data": 4, "model": 1}, rank=0,
+                   device=torch.device("cpu"), backend="gloo", groups={})
+    pods = M.Mesh(shape={"pod": 2, "data": 2, "model": 1}, rank=0,
+                  device=torch.device("cpu"), backend="gloo", groups={})
+    pop = ClientPopulation(n_clients=100, cohort=4)
     for call, module in (
-            (lambda: make_round_engine(model, fl, Topology(kind="hier",
-                                                           n_clients=2),
-                                       device="cpu"), "repro.core.engine"),
-            (lambda: make_round_engine(model, fl, Topology(kind="star",
-                                                           n_clients=2),
-                                       device="cpu"), "repro.core.engine"),
-            (lambda: make_round_engine(model, fl, Topology(kind="gossip",
-                                                           n_clients=2),
-                                       device="cpu"), "repro.core.engine")):
+            (lambda: make_round_engine(model, fl, Topology.star(),
+                                       mesh=data4, population=pop),
+             "repro.core.engine"),
+            (lambda: make_round_engine(model, fl, Topology.star("pod"),
+                                       mesh=pods), "repro.models.sharding"),
+            (lambda: M.make_mesh({"data": 2, "model": 2},
+                                 torch.device("cpu")),
+             "repro.models.sharding"),
+            (lambda: train.main(["--nproc", "2", "--device", "cpu",
+                                 "--dist-backend", "gloo",
+                                 "--model-parallel", "2"]),
+             "repro.models.sharding")):
         with pytest.raises(NotImplementedError, match=module):
             call()
 

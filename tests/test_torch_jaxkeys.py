@@ -18,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.convert import hash_params_from_jax
@@ -81,7 +82,8 @@ _bits = jax.jit(lambda k, shape, w: jax.random.bits(k, shape,
 
 
 IEEE_OPTIONS = {"xla_backend_optimization_level": 0,
-                "xla_disable_hlo_passes": "algsimp,fusion"}
+                "xla_disable_hlo_passes": "algsimp,fusion",
+                "xla_cpu_use_fusion_emitters": False}
 
 
 def ieee_jit(fn, **jit_kw):
@@ -94,15 +96,21 @@ def ieee_jit(fn, **jit_kw):
     §6's engine-scope class).  The loop fusions that XLA's ``fusion`` pass
     builds can still contract at optimization level 0 (an 8-client EF
     ``topk>>qsgd:8`` wire flipped one QSGD code of 786,432 against op by
-    op), so that pass is off too."""
+    op), so that pass is off too.  The CPU fusion emitters are off as
+    well: with no fusion pass they change no arithmetic, and the compile
+    is shorter."""
     return jax.jit(fn, compiler_options=IEEE_OPTIONS, **jit_kw)
 
 
 def quick_jit(fn):
-    """``jax.jit`` at XLA's optimization level 0, for reference programs
-    whose bits are not compared (or that only move data): they compile in
-    about a third to a half of the default's time."""
-    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+    """``jax.jit`` at XLA's optimization level 0 with the CPU fusion
+    emitters off, for reference programs whose bits are not compared (or
+    that only move data): they compile in about a third to a half of the
+    default's time, the whole models' gradients several times faster
+    without the emitters (test_torch_families.py)."""
+    return jax.jit(fn, compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_cpu_use_fusion_emitters": False})
 
 
 def _ieee_normal(key, shape):
@@ -116,6 +124,19 @@ def jax_hash_params(rows, seed=17):
     from repro.compress.sketch import hash_params
     a, b = hash_params(rows, seed)
     return hash_params_from_jax(np.asarray(a), np.asarray(b))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread for a test module (``pytestmark =
+    pytest.mark.usefixtures("one_torch_thread")``): its rounds are many
+    small ops, which OpenMP threads only slow down when the test
+    processes share the cores; every comparison in a module runs within
+    one thread setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_torch(a, device="cpu"):

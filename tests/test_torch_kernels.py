@@ -16,6 +16,9 @@ from repro.kernels import ref as ref_jax
 from repro_torch.compress import wire_format as wf_t
 from repro_torch.kernels import bitpack, ops, qsgd, topk_mask
 from repro_torch.kernels import ref as ref_t
+from test_torch_jaxkeys import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZES = (100, 3001, 5000, 8 * 2048)
 

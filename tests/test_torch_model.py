@@ -18,7 +18,9 @@ from repro.models.model import Model as ModelJax
 from repro_torch.configs.registry import get_arch, get_smoke
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.models.model import Model
-from test_torch_jaxkeys import quick_jit
+from test_torch_jaxkeys import one_torch_thread, quick_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCHS = [("paper_lm", get_arch_jax, get_arch),
          ("llama3_2_1b", get_smoke_jax, get_smoke)]

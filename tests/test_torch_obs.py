@@ -39,11 +39,13 @@ from repro_torch.core.types import CommLedger, FLConfig
 from repro_torch.obs import report as report_t
 from repro_torch.obs import telemetry as tel_t
 from repro_torch.obs import trace as trace_t
-from test_torch_jaxkeys import JaxKey
+from test_torch_jaxkeys import JaxKey, one_torch_thread  # noqa: F401
 from test_torch_privacy import models2
 from test_torch_scenario import E, steps_local_update  # noqa: F401
 from test_torch_selection import (batch_np, given_local_update,  # noqa: F401
                                   models, to_jax, to_port)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 C = 4
 SPEC = "topk:0.25>>qsgd:8"

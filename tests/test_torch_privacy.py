@@ -47,9 +47,11 @@ from repro_torch.core.types import FLConfig
 from repro_torch.models.model import Model
 from test_torch_async import _pop_data, _run_both, _same_run
 from test_torch_engine import _same_ledger
-from test_torch_jaxkeys import JaxKey
+from test_torch_jaxkeys import JaxKey, one_torch_thread  # noqa: F401
 from test_torch_selection import (batch_np, given_local_update,  # noqa: F401
                                   models, same_tree, to_jax, to_port)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DTYPES = [(np.int8, torch.int8), (np.uint8, torch.uint8),
           (np.int32, torch.int32)]

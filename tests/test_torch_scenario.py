@@ -45,10 +45,12 @@ from repro_torch.core import scenario as scn_t
 from repro_torch.core.types import FLConfig
 from test_torch_async import _run_both, _same_run, _ulps
 from test_torch_engine import _same_ledger
-from test_torch_jaxkeys import JaxKey
+from test_torch_jaxkeys import JaxKey, one_torch_thread  # noqa: F401
 from test_torch_privacy import models2, two_leaves  # noqa: F401
 from test_torch_selection import (SPEC, batch_np, given_local_update,  # noqa: F401
                                   same_tree, to_jax, to_port)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 C = 4
 

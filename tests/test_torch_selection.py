@@ -40,7 +40,9 @@ from repro_torch.core.types import FLConfig
 from repro_torch.data import synthetic as synth_t
 from repro_torch.models.model import Model
 from test_torch_engine import _same_ledger, _tree_np
-from test_torch_jaxkeys import JaxKey
+from test_torch_jaxkeys import JaxKey, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SPEC = "topk:0.25>>qsgd:8"
 LEAVES = ("final_ln", "layers.b0.mixer.wk")

@@ -47,6 +47,9 @@ from repro_torch.kernels.ref import ref_count_sketch
 from repro_torch.models.model import Model
 from test_torch_engine import C, SEQ, _same_ledger, _tree_np
 from test_torch_jaxkeys import JaxKey, ieee_jit, jax_hash_params, quick_jit
+from test_torch_jaxkeys import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

@@ -29,6 +29,9 @@ from repro_torch.core import engine as ET
 from repro_torch.core.types import FLConfig
 from repro_torch.models.model import Model
 from test_torch_jaxkeys import JaxKey, ieee_jit, jax_hash_params
+from test_torch_jaxkeys import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZES = (100, 3001, 5000)
 # spec -> the payload fields held at rtol 1e-6 (every other field exact)

@@ -35,7 +35,9 @@ from repro_torch.convert import state_from_jax
 from repro_torch.core import engine as ET
 from repro_torch.core.types import FLConfig
 from repro_torch.kernels import bitpack, ops, ternary
-from test_torch_jaxkeys import JaxKey, ieee_jit
+from test_torch_jaxkeys import JaxKey, ieee_jit, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZES = (1, 100, 2049, 5000, 16384)
 
