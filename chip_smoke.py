@@ -23,10 +23,12 @@ line is printed):
      5,000 below 2 * 4,096, n = 80 at 8 columns, 10 rows in one fold (n =
      100,000), 131,072 columns and w_up (5 x 4096), and two launches on
      one input must be bit-identical there.  The scatter path (other
-     widths, bound by its INT32 hash work) runs at n = 3001, an unaligned
-     view, 10 rows (two row groups) and rows of 70,000 columns (column
-     tiles), and its grid rule is timed both ways (one CTA per paper_lm
-     leaf, or a CTA per 4096 elements);
+     widths, bound by its INT32 hash work, one launch of thread-block
+     clusters) runs at n = 3001, an unaligned view, 10 rows (two row
+     groups) and rows of 70,000 columns (column tiles, several clusters);
+     each of its shapes prints its cluster size, clusters, CTAs and the
+     kernels a call launches (``torch.profiler``), which must be the plan's
+     launches, and one at every paper_lm leaf;
   4. slice 1's path: paper_lm at full width, 8 clients, 2 sim rounds of
      EF ``topk:0.05>>qsgd:8`` and ``topk:0.05>>qsgd:4@fused``, each with
      ``backend="kernel"`` and with the plain backend on the card — params,
@@ -527,7 +529,7 @@ OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
                "ternarize_pack_rows", "pack_codes_words",
                "unpack_codes_words", "count_sketch_fold",
-               "count_sketch_unfold", "count_sketch_partial",
+               "count_sketch_unfold", "count_sketch_scatter",
                "count_sketch_reduce")
 # count_sketch's launches by path, beside its total
 SKETCH_PATHS = ("count_sketch/fold", "count_sketch/scatter")
@@ -590,7 +592,8 @@ def cuda_ms(fn, reps):
 def device_ms(fn, reps):
     """Device time of one call of ``fn`` (the sum over the kernels it
     launches, by name), from ``torch.profiler`` over ``reps`` calls: at
-    small shapes ``cuda_ms`` times the host's launch rate instead."""
+    small shapes ``cuda_ms`` times the host's launch rate instead.  Also
+    returns the device events (kernel launches) a call."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -598,7 +601,7 @@ def device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_kernel = {}
+    by_kernel, events = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
@@ -606,7 +609,8 @@ def device_ms(fn, reps):
             name = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
             name = name.group(1) if name else e.key
             by_kernel[name] = by_kernel.get(name, 0.0) + us / reps / 1e3
-    return sum(by_kernel.values()), by_kernel
+            events += e.count
+    return sum(by_kernel.values()), by_kernel, events / reps
 
 
 def max_abs_err(a, b):
@@ -702,6 +706,17 @@ def sketch_mass(x, a, b, rows, cols):
     return M.reshape(rows, cols)
 
 
+def sketch_shapes(leaves):
+    """Phase 3's count-sketch shapes: (n, rows[, cols]), "u" marking an
+    unaligned view (x[1:]); the explicit widths take the other plans (the
+    spec grammar allows any sketch:r,c)."""
+    return ([(n, r) for r in (3, 5) for n in leaves]
+            + [(3001, 5), ("u5001", 5), ("u65536", 5), (300_000, 5),
+               (5000, 5, 4096), (80, 5), (5000, 10, 500),
+               (100_000, 10, 4096), (500_000, 2, 70_000),
+               (600_000, 2, 131_072), (LLAMA_W_UP, 5)])
+
+
 def check_count_sketch(leaves, g, dev):
     """Kernel #6 against its plain version, all shapes with the same hash
     parameters per row count: ``|S - S_plain| <= SKETCH_TOL * M + 1e-30``
@@ -711,26 +726,22 @@ def check_count_sketch(leaves, g, dev):
     131,072 columns and w_up (5 x 4096); two launches on one input must be
     bit-identical there.  The scatter path runs at the other paper_lm
     leaves (rows 3 and 5), n = 3001, an unaligned view, 10 rows (two row
-    groups) and rows of 70,000 columns (column tiles); its relaunches are
-    compared and printed (the order of the shared-memory atomics may
-    vary).  Its grid rule is timed both ways at paper_lm's 32,768 x 3,276
-    and 16,384 x 1,638 leaves (5 rows).  Returns the fold path's w_up row
-    with both paths' rows under ``paths``."""
+    groups) and rows of 70,000 columns (column tiles, 8 clusters); its
+    relaunches are compared and printed (the order of the shared-memory
+    atomics may vary).  Each scatter shape prints its plan (cluster size,
+    clusters, CTAs) and the kernels a call launches, from
+    ``torch.profiler``: the plan's launches, one at every paper_lm leaf.
+    A source tree without ``device_plan`` (one older than the cluster
+    launch, timed against this one by ``scripts/chip_phases.py``) prints
+    its launches unheld.  Returns the fold path's w_up row with both
+    paths' rows under ``paths``."""
     from repro_torch.compress.sketch import CountSketch, hash_params
     from repro_torch.kernels import count_sketch as cs
 
-    # (n, rows[, cols]), "u" marking an unaligned view (x[1:]); the
-    # explicit widths take the other plans (the spec grammar allows any
-    # sketch:r,c)
-    shapes = ([(n, r) for r in (3, 5) for n in leaves]
-              + [(3001, 5), ("u5001", 5), ("u65536", 5), (300_000, 5),
-                 (5000, 5, 4096), (80, 5), (5000, 10, 500),
-                 (100_000, 10, 4096), (500_000, 2, 70_000),
-                 (600_000, 2, 131_072), (LLAMA_W_UP, 5)])
-    rules = {(32_768, 5), (16_384, 5)}
     worst, worst_abs, largest, paths = 0.0, 0.0, {}, {}
     same_by_path = {"fold": True, "scatter": True}
-    for n, rows, *width in shapes:
+    planned = hasattr(cs, "device_plan")
+    for n, rows, *width in sketch_shapes(leaves):
         label = n
         if isinstance(n, str):
             n = int(n[1:])
@@ -777,49 +788,63 @@ def check_count_sketch(leaves, g, dev):
         op_ms = 6 * rows * n / INT32_OPS_PER_S * 1e3 if path == "scatter" \
             else 0.0
         bound_ms = max(byte_ms, op_ms)
-        dev_ms, split = device_ms(kern, 10 if big else 50)
+        dev_ms, split, per_call = device_ms(kern, 10 if big else 50)
         row = dict(n=f"{label} x {rows}x{cols}", ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bytes_bound_ms=byte_ms,
                    bound_by="bytes" if byte_ms >= op_ms else "operations",
-                   device_ms=dev_ms, device_ms_by_kernel=split)
+                   device_ms=dev_ms, device_ms_by_kernel=split,
+                   launches_per_call=per_call)
         bounds = f"bytes {byte_ms:.4f}"
+        plan_note = ""
         if path == "scatter":
             row["int32_bound_ms"] = op_ms
             bounds += f", INT32 {op_ms:.4f}"
-        rule_note = ""
-        if (n, rows) in rules and path == "scatter":
-            # the grid rule: a CTA takes at least 4096 elements (built in),
-            # or max(4 rows cols, 16384), which puts a paper_lm leaf on one
-            # CTA; device time, as the events time the host here
-            one = max(4 * rows * cols, 16384)
-            for rule, span in (("one_cta", one), ("per_4096", 4096)):
-                k = lambda: cs.count_sketch_cuda(x, a, b, rows, cols,
-                                                 min_span=span)
-                held(k(), f"grid rule {rule}")
-                row[f"device_ms_{rule}"] = device_ms(k, 50)[0]
-            rule_note = (f"; grid rule device_ms: one CTA per {one} "
-                         f"elements {row['device_ms_one_cta']:.4f} "
-                         f"({-(-n // one)} CTAs), a CTA per 4096 elements "
-                         f"{row['device_ms_per_4096']:.4f} "
-                         f"({-(-n // 4096)} CTAs)")
+            plan_note = "; plan n/a (no device_plan in this tree)"
+            if planned:
+                plan = cs.device_plan(x.device.index, n, rows, cols)
+                row.update(cluster=plan.cluster, clusters=plan.clusters,
+                           ctas=plan.ctas)
+                plan_note = (f"; cluster {plan.cluster} x {plan.clusters} "
+                             f"clusters = {plan.ctas} CTAs of {plan.span} "
+                             f"elements, {plan.smem} B shared")
+                if per_call != plan.launches:
+                    fail(f"count_sketch n={label} rows={rows} cols={cols}: "
+                         f"{per_call} kernels a call, the plan has "
+                         f"{plan.launches}")
+                if n in leaves and per_call != 1:
+                    fail(f"count_sketch n={label} rows={rows} cols={cols}: a "
+                         f"paper_lm leaf takes {per_call} kernels a call")
         print(f"kernel count_sketch/{path:7s} n={label!s:>20} rows={rows} "
               f"cols={cols} err/mass={ratio:.2e} relaunch bit-identical="
               f"{'yes' if same else 'no'} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} device_ms={dev_ms:.4f} ("
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-              + f") bound_ms={bound_ms:.4f} ({bounds}; "
-              f"{100 * bound_ms / ms:.0f}% of bound){rule_note}", flush=True)
+              + f") kernels/call={per_call:g} bound_ms={bound_ms:.4f} "
+              f"({bounds}; {100 * bound_ms / ms:.0f}% of bound){plan_note}",
+              flush=True)
         if n >= largest.get(path, 0):        # each path's largest shape
             largest[path], paths[path] = n, row
         del x, S, S2, P, M
-    print(f"count_sketch: {len(shapes)} shapes within {SKETCH_TOL} of the "
-          f"bucket mass (worst ratio {worst:.3e}); two launches on one "
-          f"input bit-identical at every fold-path shape: yes, at every "
-          f"scatter-path shape: {'yes' if same_by_path['scatter'] else 'no'}",
-          flush=True)
+    print(f"count_sketch: {len(sketch_shapes(leaves))} shapes within "
+          f"{SKETCH_TOL} of the bucket mass (worst ratio {worst:.3e}); two "
+          f"launches on one input bit-identical at every fold-path shape: "
+          f"yes, at every scatter-path shape: "
+          f"{'yes' if same_by_path['scatter'] else 'no'}", flush=True)
     return dict(paths["fold"], max_abs_err=worst_abs,
                 sketch_err_over_mass=worst,
                 relaunch_bit_identical=same_by_path, paths=paths)
+
+
+def count_sketch_phase(dev):
+    """Phase 3's count-sketch shapes alone, for ``scripts/chip_phases.py``
+    (which can point it at another source tree with ``--src``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    check_count_sketch(sorted(set(Model(get_arch("paper_lm")).param_sizes())),
+                       g, dev)
 
 
 def check_one(name, n, bits, g, dev):

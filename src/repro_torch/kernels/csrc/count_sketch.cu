@@ -41,35 +41,46 @@
 // Bound: 4 n + 4 rows cols bytes over 3.35 TB/s; the unfold reads
 // 2 rows cols slabs floats of partials from L2.
 //
-// Other widths: the scatter path.
-//  * one CTA takes a contiguous range of x and reads it once (float4 loads
-//    when x is 16-byte aligned, a scalar tail otherwise); every element
-//    runs all the rows' hashes from registers, the parameters being kernel
-//    arguments;
-//  * each CTA adds into its own rows x cols partial sketch in shared
-//    memory with shared-memory atomics (5 x 3276 x 4 B = 64 KB at the
-//    widest adapted width, above 48 KB by the dynamic shared-memory
-//    opt-in).  A sketch that does not fit in one CTA's shared memory is
-//    done in groups of rows and, for very wide rows, in column tiles, one
-//    launch each;
-//  * each CTA writes its partial to a scratch buffer [grid, rows, cols],
-//    and a second kernel sums the partials in CTA order, so no global
-//    float atomics are used.  A range small enough for one CTA writes S
-//    directly.  The order of the shared-memory atomics inside a CTA still
-//    varies, so S agrees with a sequential sum to a bounded number of ULPs
-//    (DESIGN.md §6), as the reference's kernel does.
+// Other widths: the scatter path, one launch of thread-block clusters.
+//  * the host (kernels/count_sketch.py scatter_plan) cuts x into
+//    clusters * C contiguous ranges of ``span`` elements (a multiple of 4),
+//    C = 16 CTAs a cluster where the card holds a cluster of 16 at the
+//    launch's shared memory, else 8; every n below 65,536 is one cluster
+//    (a paper_lm leaf of 32,768 elements: 16 CTAs of 2,048);
+//  * each CTA zeroes its own rows x cols partial sketch in shared memory
+//    (5 x 3276 x 4 B = 64 KB at the widest adapted width, above 48 KB by
+//    the dynamic shared-memory opt-in), reads its range of x once (float4
+//    loads when x is 16-byte aligned, a scalar tail otherwise) and adds
+//    every element into every row with a shared-memory atomicAdd.  The
+//    hash divides by the runtime width without a division: q = ab / cols
+//    by a multiply-high with the host's constant (Granlund and Montgomery,
+//    "Division by invariant integers using multiplication", PLDI 1994,
+//    Fig. 4.1, exact for every uint32 ab), h = ab - q cols, sign q & 1;
+//  * after a cluster barrier, CTA rank r sums column slice r of all C
+//    partials in rank order, read through distributed shared memory, and
+//    writes it straight into S; a second barrier keeps every partial alive
+//    until the other CTAs have read it.  With more than one cluster (n of
+//    65,536 and more) the slices go to scratch [clusters, rows, cols] and
+//    count_sketch_reduce sums them in cluster order;
+//  * a sketch larger than the opt-in shared memory, or of more than 8
+//    rows, runs in groups of rows and column tiles, one launch each.
+// The order of the shared-memory atomics inside a CTA varies, so S agrees
+// with a sequential sum to a bounded number of ULPs (DESIGN.md §6), as the
+// reference's kernel does.
 // Bound: 4 n + 4 rows cols bytes, and rows hashes per element, each about
-// 6 INT32 operations (multiply-add, division, sign flip, address) and one
-// shared-memory atomic (a compare-and-swap loop on sm_90a).
+// 6 INT32 operations (multiply-add, multiply-high, shifts, sign flip,
+// address) and one shared-memory atomic.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// the scatter path
+// the scatter path (its plan, span and cluster count come from the host)
 constexpr int kThreads = 512;
 constexpr int kMaxRows = 8;                 // hash rows per launch
-constexpr long long kMinPerCta = 4096;      // elements a CTA takes at least
 constexpr int kReduceThreads = 256;
 
 // the fold path
@@ -81,9 +92,15 @@ constexpr int kFoldBatch = 8;               // row loads in flight a thread
 constexpr int kUnfoldThreads = 256;
 constexpr int kUnfoldRows = 256;            // sketch rows per unfold launch
 
+// the hash rows of one scatter launch and the width's division constants:
+// q = (t + ((ab - t) >> sh1)) >> sh2 with t = umulhi(magic, ab)
 struct HashRows {
   unsigned a[kMaxRows];
   unsigned b[kMaxRows];
+  unsigned magic;
+  unsigned sh1;
+  unsigned sh2;
+  unsigned cols;
 };
 
 // a_j^-1 mod 2^32 and b_j of the rows one unfold launch writes
@@ -212,14 +229,14 @@ __global__ void __launch_bounds__(kUnfoldThreads)
 template <bool kTiled>
 __device__ __forceinline__ void add_element(float* sm, float v, unsigned i,
                                             const HashRows& hp, int rg,
-                                            unsigned cw, unsigned c0,
-                                            unsigned cols) {
+                                            unsigned cw, unsigned c0) {
 #pragma unroll
   for (int j = 0; j < kMaxRows; ++j) {
     if (j < rg) {
       const unsigned ab = hp.a[j] * i + hp.b[j];
-      const unsigned h = ab % cols;
-      const unsigned q = ab / cols;
+      const unsigned t = __umulhi(hp.magic, ab);
+      const unsigned q = (t + ((ab - t) >> hp.sh1)) >> hp.sh2;
+      const unsigned h = ab - q * hp.cols;
       // s * x for s = +-1: flip the sign bit where q is odd
       const float sv = __int_as_float(__float_as_int(v) ^ ((q & 1u) << 31));
       if (kTiled) {
@@ -232,18 +249,22 @@ __device__ __forceinline__ void add_element(float* sm, float v, unsigned i,
   }
 }
 
-// One CTA: elements [blockIdx.x * span, min(n, (blockIdx.x + 1) * span)),
-// rows [0, rg) of the group, columns [c0, c0 + cw) of the tile.  Writes
-// its partial (rg, cw) to out + blockIdx.x * cta_stride, rows row_stride
-// apart.
-template <bool kTiled>
+// One CTA of a cluster of kCluster: elements [blockIdx.x * span,
+// min(n, (blockIdx.x + 1) * span)), rows [0, rg) of the group, columns
+// [c0, c0 + cw) of the tile, summed into a partial (rg, cw) in shared
+// memory.  Then rank r sums columns [r sc, min(cw, (r + 1) sc)), sc =
+// ceil(cw / kCluster), of the cluster's kCluster partials in rank order
+// and writes them to out + (blockIdx.x / kCluster) * cluster_stride, rows
+// row_stride apart.
+template <int kCluster, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
-    count_sketch_partial(const float* __restrict__ x, HashRows hp,
+    count_sketch_scatter(const float* __restrict__ x, HashRows hp,
                          float* __restrict__ out, long long n, long long span,
-                         int rg, unsigned cw, unsigned c0, unsigned cols,
-                         long long cta_stride, long long row_stride,
+                         int rg, unsigned cw, unsigned c0,
+                         long long cluster_stride, long long row_stride,
                          bool vec) {
   extern __shared__ float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int tile = rg * (int)cw;
   for (int t = threadIdx.x; t < tile; t += kThreads) sm[t] = 0.0f;
   __syncthreads();
@@ -258,124 +279,99 @@ __global__ void __launch_bounds__(kThreads)
     for (long long q = (lo >> 2) + threadIdx.x; q < q1; q += kThreads) {
       const float4 v = __ldg(x4 + q);
       const unsigned i = (unsigned)(q << 2);
-      add_element<kTiled>(sm, v.x, i, hp, rg, cw, c0, cols);
-      add_element<kTiled>(sm, v.y, i + 1u, hp, rg, cw, c0, cols);
-      add_element<kTiled>(sm, v.z, i + 2u, hp, rg, cw, c0, cols);
-      add_element<kTiled>(sm, v.w, i + 3u, hp, rg, cw, c0, cols);
+      add_element<kTiled>(sm, v.x, i, hp, rg, cw, c0);
+      add_element<kTiled>(sm, v.y, i + 1u, hp, rg, cw, c0);
+      add_element<kTiled>(sm, v.z, i + 2u, hp, rg, cw, c0);
+      add_element<kTiled>(sm, v.w, i + 3u, hp, rg, cw, c0);
     }
     tail = q1 << 2 > lo ? q1 << 2 : lo;
   }
   for (long long e = tail + threadIdx.x; e < hi; e += kThreads) {
-    add_element<kTiled>(sm, __ldg(x + e), (unsigned)e, hp, rg, cw, c0, cols);
+    add_element<kTiled>(sm, __ldg(x + e), (unsigned)e, hp, rg, cw, c0);
   }
-  __syncthreads();
+  // every partial of the cluster complete and visible to the others
+  cluster.sync();
 
-  float* o = out + (long long)blockIdx.x * cta_stride;
-  for (int t = threadIdx.x; t < tile; t += kThreads) {
-    const int j = t / (int)cw;
-    o[j * row_stride + (t - j * (int)cw)] = sm[t];
+  const unsigned rank = cluster.block_rank();
+  const unsigned sc = (cw + kCluster - 1) / kCluster;
+  const unsigned m0 = rank * sc < cw ? rank * sc : cw;
+  const unsigned w = (m0 + sc < cw ? m0 + sc : cw) - m0;
+  const float* part[kCluster];
+#pragma unroll
+  for (int k = 0; k < kCluster; ++k) part[k] = cluster.map_shared_rank(sm, k);
+  float* o = out + (long long)(blockIdx.x / kCluster) * cluster_stride;
+  const int items = rg * (int)w;
+  for (int u = threadIdx.x; u < items; u += kThreads) {
+    const int j = u / (int)w;
+    const unsigned c = m0 + (unsigned)(u - j * (int)w);
+    const int t = j * (int)cw + (int)c;
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kCluster; ++k) acc += part[k][t];
+    o[j * row_stride + c] = acc;
   }
+  // no CTA exits (and frees its shared memory) before the others read it
+  cluster.sync();
 }
 
-// S[j, c] = sum over g in CTA order of part[g, j, c], for the (rg, cw)
+// S[j, c] = sum over g in cluster order of part[g, j, c], for the (rg, cw)
 // block of S at ``s`` (rows ``cols`` apart).
 __global__ void count_sketch_reduce(const float* __restrict__ part,
-                                    float* __restrict__ s, int grid, int rg,
-                                    int cw, int cols) {
+                                    float* __restrict__ s, int clusters,
+                                    int rg, int cw, int cols) {
   const int tile = rg * cw;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= tile) return;
   float acc = 0.0f;
 #pragma unroll 16
-  for (int g = 0; g < grid; ++g) acc += __ldg(part + (long long)g * tile + t);
+  for (int g = 0; g < clusters; ++g)
+    acc += __ldg(part + (long long)g * tile + t);
   const int j = t / cw;
   s[(long long)j * cols + (t - j * cw)] = acc;
 }
 
-typedef void (*PartialFn)(const float*, HashRows, float*, long long,
-                          long long, int, unsigned, unsigned, unsigned,
-                          long long, long long, bool);
+typedef void (*ScatterFn)(const float*, HashRows, float*, long long,
+                          long long, int, unsigned, unsigned, long long,
+                          long long, bool);
 
-struct Plan {
-  bool fold;         // the power-of-two path
-  // fold path
+ScatterFn scatter_fn(int cluster, bool tiled) {
+  if (cluster == 16)
+    return tiled ? count_sketch_scatter<16, true>
+                 : count_sketch_scatter<16, false>;
+  return tiled ? count_sketch_scatter<8, true> : count_sketch_scatter<8, false>;
+}
+
+struct FoldPlan {
   unsigned P;        // 2 cols
   int blocks;        // column blocks
   int slabs;         // row slabs
   int sp;            // floats a residue's partials take: slabs, rounded up
   long long slab_rows;
-  // scatter path
-  int rg;            // rows per launch
-  int cw;            // columns per launch
-  int grid;          // CTAs per launch
-  long long span;    // elements per CTA, a multiple of 4
-  PartialFn fn;
 };
 
-long long scratch_floats(const Plan& p) {
-  if (p.fold) return (long long)p.sp * p.P;
-  return p.grid > 1 ? (long long)p.grid * p.rg * p.cw : 0;
-}
-
-// min_span: the least elements a scatter-path CTA takes (0: kMinPerCta,
-// which gives a paper_lm leaf of 32,768 elements 8 CTAs and the reduce;
-// one CTA per such leaf, at least max(4 rg cw, 16384) elements a CTA,
-// was slower: PERF.md §6).
-cudaError_t make_plan(long long n, int rows, int cols, long long min_span,
-                      Plan* p) {
-  int dev = 0, sms = 0, optin = 0;
+cudaError_t fold_plan(long long n, int cols, FoldPlan* p) {
+  int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err) return err;
-  p->fold = (cols & (cols - 1)) == 0;
-  if (p->fold) {
-    p->P = 2u * (unsigned)cols;
-    const long long xrows = (n + p->P - 1) / p->P;
-    p->blocks = (int)((p->P + kFoldCols - 1) / kFoldCols);
-    long long slabs = (long long)kFoldCtasPerSm * sms / p->blocks;
-    const long long by_rows = (xrows + kFoldMinRows - 1) / kFoldMinRows;
-    if (slabs > by_rows) slabs = by_rows;
-    if (slabs < 1) slabs = 1;
-    p->slab_rows = (xrows + slabs - 1) / slabs;
-    p->slabs = (int)((xrows + p->slab_rows - 1) / p->slab_rows);
-    p->sp = (p->slabs + 3) & ~3;
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err) return err;
-  const long long floats = optin / 4;
-  p->cw = (int)(cols < floats ? cols : floats);
-  long long rg = floats / p->cw;
-  if (rg > kMaxRows) rg = kMaxRows;
-  if (rg > rows) rg = rows;
-  p->rg = (int)(rg < 1 ? 1 : rg);
-  p->fn = p->cw < cols ? count_sketch_partial<true>
-                       : count_sketch_partial<false>;
-  const int smem = p->rg * p->cw * (int)sizeof(float);
-  err = cudaFuncSetAttribute((const void*)p->fn,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, (const void*)p->fn, kThreads, (size_t)smem);
-  if (err) return err;
-  if (per_sm < 1) per_sm = 1;
-  const long long want = min_span > 0 ? min_span : kMinPerCta;
-  long long grid = (n + want - 1) / want;
-  const long long cap = (long long)per_sm * sms;
-  if (grid > cap) grid = cap;
-  if (grid < 1) grid = 1;
-  p->span = (((n + grid - 1) / grid) + 3) / 4 * 4;
-  p->grid = (int)((n + p->span - 1) / p->span);
+  p->P = 2u * (unsigned)cols;
+  const long long xrows = (n + p->P - 1) / p->P;
+  p->blocks = (int)((p->P + kFoldCols - 1) / kFoldCols);
+  long long slabs = (long long)kFoldCtasPerSm * sms / p->blocks;
+  const long long by_rows = (xrows + kFoldMinRows - 1) / kFoldMinRows;
+  if (slabs > by_rows) slabs = by_rows;
+  if (slabs < 1) slabs = 1;
+  p->slab_rows = (xrows + slabs - 1) / slabs;
+  p->slabs = (int)((xrows + p->slab_rows - 1) / p->slab_rows);
+  p->sp = (p->slabs + 3) & ~3;
   return cudaSuccess;
 }
 
-cudaError_t launch_fold(const Plan& p, const float* x, const unsigned* ainv,
-                        const unsigned* b, float* s, float* part, long long n,
-                        int rows, int cols, cudaStream_t st) {
+cudaError_t launch_fold(const FoldPlan& p, const float* x,
+                        const unsigned* ainv, const unsigned* b, float* s,
+                        float* part, long long n, int rows, int cols,
+                        cudaStream_t st) {
   const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && p.P >= 4;
   const dim3 grid(p.blocks, p.slabs);
   if (vec)
@@ -403,79 +399,177 @@ cudaError_t launch_fold(const Plan& p, const float* x, const unsigned* ainv,
   return cudaSuccess;
 }
 
-cudaError_t launch_scatter(const Plan& p, const float* x, const unsigned* a,
-                           const unsigned* b, float* sf, float* part,
-                           long long n, int rows, int cols, cudaStream_t st) {
-  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  cudaError_t err;
-  for (int r0 = 0; r0 < rows; r0 += p.rg) {
-    const int rg = rows - r0 < p.rg ? rows - r0 : p.rg;
-    HashRows hp = {};
-    for (int j = 0; j < rg; ++j) {
-      hp.a[j] = a[r0 + j];
-      hp.b[j] = b[r0 + j];
-    }
-    for (int c0 = 0; c0 < cols; c0 += p.cw) {
-      const int cw = cols - c0 < p.cw ? cols - c0 : p.cw;
-      float* dst = sf + (long long)r0 * cols + c0;
-      const bool direct = p.grid == 1;
-      p.fn<<<p.grid, kThreads, (size_t)rg * cw * sizeof(float), st>>>(
-          x, hp, direct ? dst : part, n, p.span, rg, (unsigned)cw,
-          (unsigned)c0, (unsigned)cols, direct ? 0LL : (long long)rg * cw,
-          direct ? (long long)cols : cw, vec);
-      err = cudaGetLastError();
-      if (err) return err;
-      if (!direct) {
-        const int blocks = (rg * cw + kReduceThreads - 1) / kReduceThreads;
-        count_sketch_reduce<<<blocks, kReduceThreads, 0, st>>>(
-            part, dst, p.grid, rg, cw, cols);
-        err = cudaGetLastError();
-        if (err) return err;
-      }
-    }
-  }
-  return cudaSuccess;
-}
-
 }  // namespace
 
-// The scratch the launch below needs, in floats, and the path it takes
-// (*fold = 1 for the power-of-two path).  Returns a cudaError_t.
-extern "C" int repro_count_sketch_scratch(long long n, int rows, int cols,
-                                          long long min_span,
-                                          long long* floats, int* fold) {
-  Plan p;
-  const cudaError_t err = make_plan(n, rows, cols, min_span, &p);
+// The fold path's scratch for n elements at a power-of-two ``cols``, in
+// floats.  Returns a cudaError_t.
+extern "C" int repro_count_sketch_fold_scratch(long long n, int cols,
+                                               long long* floats) {
+  if (n <= 0 || cols <= 0 || (cols & (cols - 1)))
+    return (int)cudaErrorInvalidValue;
+  FoldPlan p;
+  const cudaError_t err = fold_plan(n, cols, &p);
   if (err) return (int)err;
-  *floats = scratch_floats(p);
-  *fold = p.fold ? 1 : 0;
+  *floats = (long long)p.sp * p.P;
   return 0;
 }
 
-// x: n floats on the device; a, b: the rows' hash parameters and ainv
-// their multipliers' inverses mod 2^32 (read on the power-of-two path
-// only; every a odd there), all in HOST memory; S: rows * cols floats on
-// the device (every entry written); scratch:
-// ``repro_count_sketch_scratch`` floats.  Returns cudaGetLastError()
+// The fold path.  x: n floats on the device; b: the rows' hash offsets and
+// ainv their multipliers' inverses mod 2^32 (every a odd), in HOST memory;
+// S: rows * cols floats on the device (every entry written); scratch:
+// ``repro_count_sketch_fold_scratch`` floats.  Returns cudaGetLastError()
 // after the launches.
-extern "C" int repro_count_sketch(const void* x, const unsigned* a,
-                                  const unsigned* b, const unsigned* ainv,
-                                  void* S, void* scratch,
-                                  long long scratch_len, long long n,
-                                  int rows, int cols, long long min_span,
-                                  void* stream) {
-  if (n <= 0 || rows <= 0 || cols <= 0)
+extern "C" int repro_count_sketch_fold(const void* x, const unsigned* b,
+                                       const unsigned* ainv, void* S,
+                                       void* scratch, long long scratch_len,
+                                       long long n, int rows, int cols,
+                                       void* stream) {
+  if (n <= 0 || rows <= 0 || cols <= 0 || (cols & (cols - 1)))
     return (int)cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = make_plan(n, rows, cols, min_span, &p);
+  FoldPlan p;
+  cudaError_t err = fold_plan(n, cols, &p);
   if (err) return (int)err;
-  if (scratch_len < scratch_floats(p)) return (int)cudaErrorInvalidValue;
+  if (scratch_len < (long long)p.sp * p.P) return (int)cudaErrorInvalidValue;
+  err = launch_fold(p, static_cast<const float*>(x), ainv, b,
+                    static_cast<float*>(S), static_cast<float*>(scratch), n,
+                    rows, cols, static_cast<cudaStream_t>(stream));
+  if (err) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Once a device: lets the scatter kernels take the device's opt-in shared
+// memory and the 16-CTA clusters (a non-portable size); *optin gets that
+// shared memory in bytes.
+extern "C" int repro_count_sketch_setup(int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return (int)err;
+  err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err) return (int)err;
+  const int sizes[] = {8, 16};
+  const bool tilings[] = {false, true};
+  for (int cluster : sizes) {
+    for (bool tiled : tilings) {
+      const void* fn = (const void*)scatter_fn(cluster, tiled);
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+      if (err) return (int)err;
+      if (cluster > 8) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err) return (int)err;
+      }
+    }
+  }
+  return 0;
+}
+
+// The cluster size for a scatter launch whose CTAs take ``smem`` bytes of
+// shared memory: 16 where the card holds one such cluster at once, else 8.
+// *active gets the clusters of that size the card holds at once.
+extern "C" int repro_count_sketch_cluster(int smem, int tiled, int* cluster,
+                                          int* active) {
+  const int sizes[] = {16, 8};
+  for (int c : sizes) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int num = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(
+        &num, (const void*)scatter_fn(c, tiled != 0), &cfg);
+    if (err) {
+      cudaGetLastError();  // not sticky: clear it for the launch checks
+      if (c == 8) return (int)err;
+      continue;
+    }
+    if (num >= 1) {
+      *cluster = c;
+      *active = num;
+      return 0;
+    }
+  }
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+// The scatter path, as kernels/count_sketch.py scatter_plan cuts it: row
+// groups of ``rg`` rows and column tiles of ``cw`` columns, each one launch
+// of ``clusters`` clusters of ``cluster`` CTAs, a CTA hashing ``span``
+// elements (a multiple of 4).  x: n floats on the device; a, b: the rows'
+// hash parameters in HOST memory; (magic, sh1, sh2): the division by cols;
+// S: rows * cols floats on the device (every entry written); scratch:
+// clusters * rg * cw floats when clusters > 1 (then each group and tile
+// adds a count_sketch_reduce launch), else unused.  Returns
+// cudaGetLastError() after the launches; a refused cluster launch is an
+// error, never a fallback.
+extern "C" int repro_count_sketch_scatter(
+    const void* x, const unsigned* a, const unsigned* b, void* S,
+    void* scratch, long long n, int rows, int cols, int rg, int cw,
+    long long span, int cluster, int clusters, unsigned magic, int sh1,
+    int sh2, void* stream) {
+  if (n <= 0 || rows <= 0 || cols <= 0 || rg < 1 || rg > kMaxRows ||
+      cw < 1 || cw > cols || span <= 0 || span % 4 ||
+      (cluster != 8 && cluster != 16) || clusters < 1 ||
+      (long long)clusters * cluster * span < n ||
+      (clusters > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* sf = static_cast<float*>(S);
   float* part = static_cast<float*>(scratch);
-  err = p.fold ? launch_fold(p, xf, ainv, b, sf, part, n, rows, cols, st)
-               : launch_scatter(p, xf, a, b, sf, part, n, rows, cols, st);
-  if (err) return (int)err;
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const ScatterFn fn = scatter_fn(cluster, cw < cols);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaError_t err;
+  for (int r0 = 0; r0 < rows; r0 += rg) {
+    const int g = rows - r0 < rg ? rows - r0 : rg;
+    HashRows hp = {};
+    for (int j = 0; j < g; ++j) {
+      hp.a[j] = a[r0 + j];
+      hp.b[j] = b[r0 + j];
+    }
+    hp.magic = magic;
+    hp.sh1 = (unsigned)sh1;
+    hp.sh2 = (unsigned)sh2;
+    hp.cols = (unsigned)cols;
+    for (int c0 = 0; c0 < cols; c0 += cw) {
+      const int w = cols - c0 < cw ? cols - c0 : cw;
+      float* dst = sf + (long long)r0 * cols + c0;
+      const bool direct = clusters == 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((unsigned)(clusters * cluster));
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = (size_t)g * w * sizeof(float);
+      cfg.stream = st;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(
+          &cfg, fn, xf, hp, direct ? dst : part, n, span, g, (unsigned)w,
+          (unsigned)c0, direct ? 0LL : (long long)g * w,
+          direct ? (long long)cols : (long long)w, vec);
+      if (err) return (int)err;
+      err = cudaGetLastError();
+      if (err) return (int)err;
+      if (!direct) {
+        const int blocks = (g * w + kReduceThreads - 1) / kReduceThreads;
+        count_sketch_reduce<<<blocks, kReduceThreads, 0, st>>>(
+            part, dst, clusters, g, w, cols);
+        err = cudaGetLastError();
+        if (err) return (int)err;
+      }
+    }
+  }
   return (int)cudaGetLastError();
 }

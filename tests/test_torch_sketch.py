@@ -1,6 +1,7 @@
 """The count-sketch slice of the port against the reference: the hash, the
 identity the kernel's fold path rests on (at a power-of-two width a
-bucket and its sign depend only on ``i mod 2*cols``), the plain sketch
+bucket and its sign depend only on ``i mod 2*cols``), the scatter path's
+division-free hash and its cluster plan (emulated in numpy), the plain sketch
 against the reference's oracle and its Pallas kernel in interpret mode,
 the midpoint-median unsketch, and one EF
 ``sketch>>qsgd:8`` sim round through the port's engine against the
@@ -154,6 +155,144 @@ def test_fold_path_takes_power_of_two_widths_and_odd_multipliers():
         count_sketch.inverses([int(a[0]), 6])
     assert all(int(t) * v % (1 << 32) == 1
                for t, v in zip(a, count_sketch.inverses(a)))
+
+
+def _kernel_hash(i, a, b, cols):
+    """Buckets (rows, m) and signs as the scatter kernel computes them:
+    ``ab = a*i + b mod 2^32``, then :func:`count_sketch.fast_divmod`."""
+    a = np.asarray([int(t) for t in a], np.uint64)[:, None]
+    b = np.asarray([int(t) for t in b], np.uint64)[:, None]
+    ab = (a * np.asarray(i, np.uint64)[None, :] + b) & np.uint64(0xFFFFFFFF)
+    q, h = count_sketch.fast_divmod(ab, cols)
+    return h.astype(np.int64), \
+        np.where(q & np.uint64(1), -1.0, 1.0).astype(np.float32)
+
+
+def _divmod_values(cols, count, rng):
+    """uint64 (len(cols), count): 0, 1, 2^32 - 1, k*cols - 1, k*cols and
+    k*cols + 1 for the two largest k with k*cols below 2^32, then seeded
+    uniform draws."""
+    c = np.asarray(cols, np.int64)[:, None]
+    top = (1 << 32) // c
+    near = np.concatenate([k * c + d for k in (top, top - 1)
+                           for d in (-1, 0, 1)], axis=1)
+    near = np.minimum(near, (1 << 32) - 1).astype(np.uint64)
+    fixed = np.broadcast_to(np.array([0, 1, (1 << 32) - 1], np.uint64),
+                            (c.shape[0], 3))
+    draws = rng.integers(0, 1 << 32, size=(c.shape[0], count - 9),
+                         dtype=np.uint64)
+    return np.concatenate([fixed, near, draws], axis=1), c.astype(np.uint64)
+
+
+def test_division_free_hash_exact_and_bit_equal():
+    """The scatter kernel's multiply-high division (Granlund and
+    Montgomery) equals ``//`` and ``%`` exactly: 64 values at every
+    non-power-of-two width from 3 to 4,095 and 4,096 at 500, 70,000 and
+    131,071; the buckets and signs built from it equal the reference's
+    ``bucket_and_sign`` bit for bit at 32,768 x 5 x 3,276."""
+    rng = np.random.default_rng(23)
+    widths = [c for c in range(3, 4096) if c & (c - 1)]
+    for cols, count in ((widths, 64), ([500, 70_000, 131_071], 4096)):
+        ab, c = _divmod_values(cols, count, rng)
+        magic = tuple(np.array(v, np.uint64)[:, None] for v in
+                      zip(*(count_sketch.divisor_magic(w) for w in cols)))
+        assert (magic[0] < np.uint64(1 << 32)).all()
+        q, h = count_sketch.fast_divmod(ab, c, magic)
+        np.testing.assert_array_equal(q, ab // c)
+        np.testing.assert_array_equal(h, ab % c)
+    n, rows, cols = 32_768, 5, 3276
+    h_k, s_k = _kernel_hash(np.arange(n), *jax_hash_params(rows), cols)
+    h_j, s_j = sk_jax.bucket_and_sign(jnp.arange(n, dtype=jnp.int32),
+                                      *sk_jax.hash_params(rows), cols)
+    np.testing.assert_array_equal(h_k, np.asarray(h_j))
+    np.testing.assert_array_equal(s_k, np.asarray(s_j))
+
+
+def _paper_lm_scatter_leaves():
+    """(n, rows, cols) of every paper_lm leaf below 40,960 elements at 3
+    and 5 rows, with the adapted width."""
+    sizes = sorted(set(Model(get_arch("paper_lm")).param_sizes()))
+    return [(n, r, sk_t.CountSketch(r, 4096)._cols(n))
+            for n in sizes if n < 40_960 for r in (3, 5)]
+
+
+def _covered_once(plan):
+    """Every element in exactly one CTA's range (spans of a multiple of 4),
+    every (row, column) in exactly one row group, column tile and merge
+    slice; a CTA's shared memory within the H100's opt-in."""
+    elems = np.zeros(plan.n, np.int64)
+    for g in range(plan.ctas):
+        lo, hi = plan.cta_range(g)
+        elems[lo:hi] += 1
+    assert plan.span % 4 == 0 and (elems == 1).all()
+    cells = np.zeros((plan.rows, plan.cols), np.int64)
+    for r0, g in plan.groups():
+        for c0, w in plan.tiles():
+            for m0, m1 in count_sketch.merge_slices(w, plan.cluster):
+                cells[r0:r0 + g, c0 + m0:c0 + m1] += 1
+    assert (cells == 1).all()
+    assert plan.smem <= 232_448
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_scatter_plan_covers_once(cluster):
+    """Every paper_lm leaf below 40,960 elements runs as one cluster of one
+    launch; 5,000 x 10 x 500 (two row groups) and 500,000 x 2 x 70,000
+    (column tiles, several clusters) cover the sketch exactly once."""
+    for n, rows, cols in _paper_lm_scatter_leaves():
+        plan = count_sketch.scatter_plan(n, rows, cols, cluster)
+        assert (plan.clusters, plan.ctas, plan.launches) == \
+            (1, cluster, 1), (n, rows, cols)
+        assert plan.scratch_floats == 0
+        _covered_once(plan)
+    for n, rows, cols, groups, tiles in ((5000, 10, 500, 2, 1),
+                                         (500_000, 2, 70_000, 1, 3)):
+        plan = count_sketch.scatter_plan(n, rows, cols, cluster)
+        assert (len(plan.groups()), len(plan.tiles())) == (groups, tiles)
+        _covered_once(plan)
+    assert count_sketch.scatter_plan(32_768, 5, 3276, 16).span == 2048
+    assert count_sketch.scatter_plan(500_000, 2, 70_000, 16, 7).clusters == 7
+
+
+@pytest.mark.parametrize("n,rows,cols,cluster,smem", [
+    (32_768, 5, 3276, 16, count_sketch.SMEM_OPTIN),
+    (140_000, 10, 1000, 8, 16_000)])
+def test_scatter_plan_emulation_matches_reference(n, rows, cols, cluster,
+                                                  smem):
+    """The scatter path emulated in numpy from its plan: a partial per CTA
+    (the sketch of its range with the division-free hash), each tile's
+    merge slices summed in rank order, clusters summed in order, within
+    1e-5 of each bucket's mass of the reference's ``sketch``; the second
+    shape has 3 clusters, 2 row groups and 2 column tiles."""
+    x = _x(n, n + rows)
+    plan = count_sketch.scatter_plan(n, rows, cols, cluster, 0, smem)
+    h, s = _kernel_hash(np.arange(n), *jax_hash_params(rows), cols)
+    sx = s * x[None, :]
+    S = np.zeros((rows, cols), np.float32)
+    for r0, g in plan.groups():
+        for c0, w in plan.tiles():
+            acc = np.zeros((g, w), np.float32)
+            for k in range(plan.clusters):
+                parts = []
+                for r in range(cluster):
+                    lo, hi = plan.cta_range(k * cluster + r)
+                    part = np.zeros((g, w), np.float32)
+                    for j in range(g):
+                        hc = h[r0 + j, lo:hi] - c0
+                        keep = (hc >= 0) & (hc < w)
+                        part[j] = np.bincount(hc[keep],
+                                              weights=sx[r0 + j, lo:hi][keep],
+                                              minlength=w)
+                    parts.append(part)
+                merged = np.zeros((g, w), np.float32)
+                for m0, m1 in count_sketch.merge_slices(w, cluster):
+                    for part in parts:
+                        merged[:, m0:m1] += part[:, m0:m1]
+                acc += merged
+            S[r0:r0 + g, c0:c0 + w] = acc
+    assert plan.clusters == (1 if n < 65_536 else 3)
+    _within_mass(S, _jax_sketch(jnp.asarray(x), rows, cols),
+                 _mass(x, rows, cols), f"emulated plan n={n}")
 
 
 @pytest.mark.parametrize("n,rows,cols", [(1024, 3, 256), (4096, 5, 512)])
