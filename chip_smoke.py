@@ -524,6 +524,32 @@ GOSSIP_RUNS = (("ring", "qsgd:8", ("qsgd_quantize",)),
                ("expander", "topk:0.25>>qsgd:8",
                 ("threshold_sparsify", "qsgd_quantize")))
 LLAMA_STAR = dict(uplink_compressor="topk:0.05>>qsgd:4@fused")
+# phase 15f: the star over a population on the same 4 ranks, each run on
+# both backends: (label, ClientPopulation knobs, FLConfig knobs, kernels
+# the kernel backend runs).  Population seed 2 draws cohorts of 12
+# clients that hit, miss and evict within 4 rounds at capacity 8.
+POP_STAR_ROUNDS = 4
+POP_STAR_DEGENERATE = dict(n_clients=4, cohort=4, capacity=4)
+POP_STAR_RUNS = (
+    ("b drop 12/4/8", dict(n_clients=12, cohort=4, capacity=8,
+                           eviction="drop", seed=2),
+     dict(uplink_compressor=CHAINS[0]),
+     ("threshold_sparsify", "qsgd_quantize")),
+    ("c sketch 1M/4/8", dict(n_clients=1_000_000, cohort=4, capacity=8,
+                             eviction="sketch"),
+     dict(uplink_compressor=CHAINS[1]),
+     ("threshold_sparsify", "qsgd_quantize", "qsgd_pack")),
+    ("d diurnal 0.75 12/4/8", dict(n_clients=12, cohort=4, capacity=8,
+                                   eviction="drop", seed=2,
+                                   availability=0.75),
+     dict(uplink_compressor=CHAINS[0], scenario_trace="diurnal"),
+     ("threshold_sparsify", "qsgd_quantize")),
+)
+# phase 15g: the train CLI's ranks with --trace, --profile-dir and
+# --checkpoint (star, then hier at pod 2 x data 2)
+CLI_RANK_RUNS = (("star", []),
+                 ("hier", ["--hierarchical", "--sync-every", "2"]))
+CLI_RANK_KERNELS = ("threshold_sparsify", "qsgd_quantize", "qsgd_pack")
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -788,7 +814,18 @@ def check_count_sketch(leaves, g, dev):
         op_ms = 6 * rows * n / INT32_OPS_PER_S * 1e3 if path == "scatter" \
             else 0.0
         bound_ms = max(byte_ms, op_ms)
+        plan = (cs.device_plan(x.device.index, n, rows, cols)
+                if planned and path == "scatter" else None)
         dev_ms, split, per_call = device_ms(kern, 10 if big else 50)
+        # torch.profiler now and then drops a tiny shape's events (never
+        # adds one): a count below the plan's is profiled again, at most
+        # twice, and the largest count stands
+        profiles = 1
+        while plan is not None and per_call < plan.launches and profiles < 3:
+            again = device_ms(kern, 10 if big else 50)
+            profiles += 1
+            if again[2] > per_call:
+                dev_ms, split, per_call = again
         row = dict(n=f"{label} x {rows}x{cols}", ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bytes_bound_ms=byte_ms,
                    bound_by="bytes" if byte_ms >= op_ms else "operations",
@@ -800,8 +837,7 @@ def check_count_sketch(leaves, g, dev):
             row["int32_bound_ms"] = op_ms
             bounds += f", INT32 {op_ms:.4f}"
             plan_note = "; plan n/a (no device_plan in this tree)"
-            if planned:
-                plan = cs.device_plan(x.device.index, n, rows, cols)
+            if plan is not None:
                 row.update(cluster=plan.cluster, clusters=plan.clusters,
                            ctas=plan.ctas)
                 plan_note = (f"; cluster {plan.cluster} x {plan.clusters} "
@@ -819,7 +855,10 @@ def check_count_sketch(leaves, g, dev):
               f"{'yes' if same else 'no'} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} device_ms={dev_ms:.4f} ("
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-              + f") kernels/call={per_call:g} bound_ms={bound_ms:.4f} "
+              + f") kernels/call={per_call:g}"
+              + (f" (the most of {profiles} profiles)" if profiles > 1
+                 else "")
+              + f" bound_ms={bound_ms:.4f} "
               f"({bounds}; {100 * bound_ms / ms:.0f}% of bound){plan_note}",
               flush=True)
         if n >= largest.get(path, 0):        # each path's largest shape
@@ -4026,8 +4065,9 @@ def backend_pairs(runs, what, rank, skip_ctx=False, skip=(), loose=False):
 
 
 def topology_ranks(rank, world, init, out_dir):
-    """One of phase 15/15c/15d's 4 ranks on the card (gloo): the star's
-    chains, then hier at pod 2 x data 2, then gossip, each phase's kernel
+    """One of phase 15/15c/15d/15f/15g's 4 ranks on the card (gloo): the
+    star's chains, then hier at pod 2 x data 2, gossip, the star over a
+    population and the train CLI's ranks traced, each phase's kernel
     launches counted from 0 in this rank."""
     dev = rank_setup(rank, world, init)
     import torch.distributed as dist
@@ -4043,9 +4083,12 @@ def topology_ranks(rank, world, init, out_dir):
     report = {"rank": rank, "device": str(dev), "phases": {}}
     mesh4 = make_mesh({"data": world, "model": 1}, dev)
     mesh22 = make_mesh({"pod": 2, "data": world // 2, "model": 1}, dev)
+    cli = lambda *a: cli_rank_phase(*a, out_dir)          # noqa: E731
     for name, fn, mesh in (("15", star_rank_phase, mesh4),
                            ("15c", hier_rank_phase, mesh22),
-                           ("15d", gossip_rank_phase, mesh4)):
+                           ("15d", gossip_rank_phase, mesh4),
+                           ("15f", population_star_phase, mesh4),
+                           ("15g", cli, mesh4)):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         lines = fn(rank, model, mesh, dev, devices)
@@ -4267,20 +4310,294 @@ def gossip_rank_phase(rank, model, mesh, dev, devices):
     return lines
 
 
+def store_digest(store_state):
+    """A digest of every tensor of a store state, in order (its bytes as
+    they lie: replicas equal bit for bit have equal digests)."""
+    import hashlib
+
+    from repro_torch.compress.residual_store import _leaves
+    h = hashlib.sha256()
+    for t in _leaves(store_state):
+        h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def gather_object(value):
+    """Every rank's ``value``, in rank order (outside the collective
+    wrapper: a check, not a round's traffic)."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def population_star_run(model, mesh, dev, pop, fl_kw, backend, data_fn):
+    """POP_STAR_ROUNDS rounds of the star over ``pop`` (None: the dense
+    star) with the flight recorder on; each round synchronised and timed,
+    its collective records and the store's digest after it."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.engine import (Topology, make_round_engine,
+                                         stack_rows)
+    from repro_torch.core.types import FLConfig
+    fl = FLConfig(backend=backend, telemetry=True,
+                  **dict(TOPO_FL, **fl_kw))
+    eng = make_round_engine(model, fl, Topology.star(), chunk=PAPER_LM_SEQ,
+                            mesh=mesh, population=pop)
+    state = eng.init_fn(0)
+    before = launch_counts()
+    ms, times, recs, digests = [], [], [], []
+    for _ in range(POP_STAR_ROUNDS):
+        aggregation.COLLECTIVES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = eng.round_fn(state, eng.local_batch(
+            data_fn(state.round)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        recs.append(list(aggregation.COLLECTIVES))
+        ms.append(m)
+        if pop is not None and state.comm_state is not None:
+            digests.append(store_digest(state.comm_state))
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    return eng, state, stack_rows(ms), times, recs, digests, ran
+
+
+def population_star_phase(rank, model, mesh, dev, devices):
+    """Phase 15f in one rank: the star over a ClientPopulation, every rank
+    a replica of the residual store.  (a) n_clients = cohort = capacity =
+    4 against the dense star bit for bit; (b)-(d) POP_STAR_RUNS.  Each run
+    on both backends, POP_STAR_ROUNDS rounds: backends bit-identical (the
+    params, the whole store, the ledger, the losses), every rank's
+    replica bit-identical after every round, the store counters and
+    ``selected`` equal across ranks, the wire's bytes the ledger's for
+    the selected clients, the store hop one advanced row a rank a round,
+    the kernels launched on the kernel backend alone."""
+    from repro_torch.compress.residual_store import _leaves, store_nbytes
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.data.pipeline import cohort_data_fn
+    C, idx = mesh.shape["data"], mesh.axis_index("data")
+    sizes = model.param_sizes()
+    row = 4 * sum(sizes)                  # one client's f32 EF residual
+    lines = []
+
+    # (a) the degenerate contract, on the dense star's batches
+    data4 = paper_data(model, C, dev)
+    fl_a = dict(uplink_compressor=CHAINS[0])
+    for backend in ("kernel", "jax"):
+        _, sd, md, *_ = population_star_run(model, mesh, dev, None, fl_a,
+                                            backend, data4)
+        _, sp, mp, times, recs, digests, ran = population_star_run(
+            model, mesh, dev, ClientPopulation(**POP_STAR_DEGENERATE), fl_a,
+            backend, data4)
+        for a, b in zip(_tensors(sd.params), _tensors(sp.params)):
+            if not torch.equal(a, b):
+                rank_fail(rank, f"15f a {backend}: params differ from the "
+                                f"dense star")
+        slab = _leaves(sp.comm_state["slab"])
+        dense = _leaves(sd.comm_state)
+        if len(slab) != len(dense) or not all(
+                torch.equal(s[idx], d[0]) for s, d in zip(slab, dense)):
+            rank_fail(rank, f"15f a {backend}: slab row {idx} differs from "
+                            f"the dense star's EF row")
+        if not torch.equal(mp["loss"], md["loss"]):
+            rank_fail(rank, f"15f a {backend}: losses differ")
+        lines.append(f"phase 15f a degenerate n=cohort=capacity={C} "
+                     f"backend={backend}: params and slab row {idx} == the "
+                     f"dense star's bit for bit ({len(slab)} EF rows), "
+                     f"{POP_STAR_ROUNDS} rounds, launches {ran}")
+
+    for label, pop_kw, fl_kw, expect in POP_STAR_RUNS:
+        runs = {}
+        for backend in ("kernel", "jax"):
+            pop = ClientPopulation(**pop_kw)
+            data_fn = cohort_data_fn(pop, fed_data(
+                model, pop.n_clients, PAPER_LM_SEQ, PAPER_LM_BATCH), dev)
+            eng, st, ms, times, recs, digests, ran = population_star_run(
+                model, mesh, dev, pop, fl_kw, backend, data_fn)
+            what = f"15f {label} {backend}"
+            for name, count in ran.items():
+                if (count > 0) != (backend == "kernel" and name in expect):
+                    rank_fail(rank, f"{what}: {name} launched {count}")
+            everyone = gather_object(digests)
+            if any(d != digests for d in everyone) or \
+                    len(digests) != POP_STAR_ROUNDS:
+                rank_fail(rank, f"{what}: the store replicas differ across "
+                                f"ranks")
+            rs = ms["round_stats"]
+            counters = {k: [int(v) for v in getattr(rs, f"store_{k}")]
+                        for k in ("hits", "misses", "evictions")}
+            sel = [float(v) for v in ms["selected"]]
+            if any(o != (counters, sel) for o in gather_object(
+                    (counters, sel))):
+                rank_fail(rank, f"{what}: store counters or selected "
+                                f"differ across ranks")
+            # (a million clients' cohorts never meet again in 4 rounds)
+            occur = ("misses", "evictions") + (
+                ("hits",) if pop.n_clients < 2 * pop.capacity else ())
+            if not all(sum(counters[k]) > 0 for k in occur):
+                rank_fail(rank, f"{what}: not all of {occur} occur "
+                                f"({counters})")
+            # every rank sends its payload (a zero-weight client too); the
+            # ledger bills the selected clients' wire_bits, which is the
+            # payload under @fused and the payload less the staged QSGD
+            # plane's padding to whole blocks otherwise
+            per = payload_per_client(fl_kw["uplink_compressor"], model, dev)
+            term = eng.terms["up_wire"]
+            got = wire_bytes(recs, "wire")
+            led = [float(v) for v in ms["ledger"].uplink_wire.tolist()]
+            want = [float(torch.tensor(n, dtype=torch.float32)
+                          * torch.tensor(term, dtype=torch.float32))
+                    for n in sel]
+            if got != [per] * POP_STAR_ROUNDS or sum_ranks(sum(got)) != \
+                    C * per * POP_STAR_ROUNDS or led != want or (
+                        "@fused" in fl_kw["uplink_compressor"]
+                        and term != per):
+                rank_fail(rank, f"{what}: wire bytes {got} (payload {per}), "
+                                f"ledger {led} for selected {sel} (billed "
+                                f"{term} a client)")
+            stored = wire_bytes(recs, "store")
+            if stored != [row] * POP_STAR_ROUNDS or sum_ranks(
+                    sum(stored)) != C * row * POP_STAR_ROUNDS:
+                rank_fail(rank, f"{what}: store bytes {stored} != one row "
+                                f"{row} a round")
+            losses = [float(v) for v in ms["loss"]]
+            if not all(v == v and abs(v) < 1e6 for v in losses):
+                rank_fail(rank, f"{what}: loss {losses}")
+            by_hop = {h: [sum(r.seconds for r in rr if r.hop == h)
+                          for rr in recs] for h in ("wire", "store",
+                                                    "metrics")}
+            mb = store_nbytes(st.comm_state) / 1e6
+            runs[backend] = (st, ms)
+            lines.append(
+                f"phase 15f {label} backend={backend}: {C} ranks over gloo "
+                f"on {devices}, round times "
+                f"{', '.join(f'{t:.3f}' for t in times)} s, collectives by "
+                f"hop: " + "; ".join(f"{h} {shares(v, times)}"
+                                     for h, v in by_hop.items())
+                + f"; store replica {mb:.2f} MB a rank, hits/misses/"
+                f"evictions a round {counters['hits']}/"
+                f"{counters['misses']}/{counters['evictions']}, selected "
+                f"{sel}, loss {fmt(losses)}, wire {per:,} B a rank a round "
+                f"(the ledger {fmt(led)} == selected x {term:,.0f} B), store "
+                f"hop {row:,} B a rank a round, "
+                f"replicas bit-identical every round, launches {ran}")
+        n = backend_pairs(runs, f"15f {label}", rank)
+        lines.append(f"phase 15f {label}: kernel and plain backends "
+                     f"bit-identical ({n} tensors: params, the whole store, "
+                     f"the ledger, the losses)")
+    return lines
+
+
+def cli_rank_phase(rank, model, mesh, dev, devices, out_dir):
+    """Phase 15g in one rank: ``train.main`` with --nproc 4 --dist-backend
+    gloo (this process already a rank: it runs its own part) and --trace,
+    --profile-dir and --checkpoint, for the star and hier, then the same
+    run untraced.  Rank 0's trace validates and its report renders, its
+    stage slots sum to the ledger, every rank wrote its own profiler
+    trace, the checkpoint restores bit-equal to rank 0's final params and
+    every rank's params equal the untraced run's."""
+    import contextlib
+    import io
+
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.obs import report
+    from repro_torch.obs.trace import validate_file
+
+    world = mesh.shape["data"]
+    base = ["--nproc", str(world), "--dist-backend", "gloo", "--device",
+            dev.type, "--backend", "kernel", "--rounds", "2", "--seq",
+            str(PAPER_LM_SEQ), "--batch-per-client", str(PAPER_LM_BATCH),
+            "--local-steps", "1", "--compressor", CHAINS[1]]
+    lines = []
+    for kind, extra in CLI_RANK_RUNS:
+        d = os.path.join(out_dir, f"15g-{kind}")
+        trace, prof = os.path.join(d, "run.jsonl"), os.path.join(d, "prof")
+        ckpt = os.path.join(d, "ckpt.npz")
+        if rank == 0:
+            os.makedirs(d, exist_ok=True)
+        sum_ranks(0)                                     # a barrier
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            on, ms = train.main(base + extra + [
+                "--trace", trace, "--profile-dir", prof, "--checkpoint",
+                ckpt])
+        secs_on = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            off, _ = train.main(base + extra)
+        secs_off = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in launch_counts().items()}
+        for name, count in ran.items():
+            if (count > 0) != (name in CLI_RANK_KERNELS):
+                rank_fail(rank, f"15g {kind}: {name} launched {count}")
+        for n, p in on.params.items():
+            if not torch.equal(p, off.params[n]):
+                rank_fail(rank, f"15g {kind}: traced params differ from "
+                                f"untraced ({n})")
+        mine = [f for f in os.listdir(prof) if f.startswith(f"rank{rank}.")]
+        if not mine:
+            rank_fail(rank, f"15g {kind}: no profiler trace of this rank in "
+                            f"{sorted(os.listdir(prof))}")
+        sum_ranks(0)
+        if rank == 0:
+            recs = validate_file(trace)
+            kinds = [r["kind"] for r in recs]
+            if (recs[0].get("topology"), kinds.count("round"),
+                    kinds.count("stages"), kinds.count("checkpoint")) != (
+                        kind, 2, 1, 1):
+                rank_fail(rank, f"15g {kind}: records {kinds}")
+            text = report.render(report.summarize(recs))
+            if "uplink byte waterfall" not in text:
+                rank_fail(rank, f"15g {kind}: the report:\n{text}")
+            check_slots(ms["round_stats"], ms["ledger"], f"15g {kind}")
+            for r in (x for x in recs if x["kind"] == "round"):
+                acc = torch.zeros((), dtype=torch.float32)
+                for v in r["m"]["round_stats.up_stage_bytes"]:
+                    acc = acc + torch.tensor(v, dtype=torch.float32)
+                if float(acc) != r["m"]["ledger.uplink_wire"]:
+                    rank_fail(rank, f"15g {kind}: the trace's slots sum to "
+                                    f"{float(acc)}, the ledger "
+                                    f"{r['m']['ledger.uplink_wire']}")
+            back = checkpoint.restore(ckpt, on.params)
+            for n, p in on.params.items():
+                if not torch.equal(back[n], p):
+                    rank_fail(rank, f"15g {kind}: checkpoint leaf {n}")
+            profs = sorted(os.listdir(prof))
+            mb = sum(os.path.getsize(os.path.join(prof, f))
+                     for f in profs) / 1e6
+            lines.append(
+                f"phase 15g cli {kind}: --nproc {world} over gloo on "
+                f"{devices}, {len(recs)} records "
+                f"{ {k: kinds.count(k) for k in sorted(set(kinds))} } "
+                f"valid, the report renders, the slots sum to the ledger; "
+                f"profiler traces {profs} ({mb:.1f} MB); checkpoint "
+                f"restores bit-equal ({len(back)} leaves); traced params "
+                f"== untraced on every rank; {secs_on:.2f}s traced and "
+                f"profiled, {secs_off:.2f}s untraced (rank 0, with the "
+                f"build of the engine); launches {ran}")
+        sum_ranks(0)
+    return lines
+
+
 def topology_phase(dev):
-    """Phases 15, 15c and 15d: one group of 4 ranks on the card over gloo
-    (NCCL cannot put two ranks of one communicator on one card); each
-    rank reports its launches per phase, added here to this process's
-    counts."""
+    """Phases 15, 15c, 15d, 15f and 15g: one group of 4 ranks on the card
+    over gloo (NCCL cannot put two ranks of one communicator on one card);
+    each rank reports its launches per phase, added here to this
+    process's counts."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     reps = run_group(topology_ranks, TOPO_RANKS, "phase15")
-    print(f"phases 15-15d: {TOPO_RANKS} ranks over gloo on "
+    print(f"phases 15-15d, 15f, 15g: {TOPO_RANKS} ranks over gloo on "
           f"{[r['device'] for r in reps]}, {time.perf_counter() - t0:.1f}s "
           f"with the spawn on {card_line()}", flush=True)
-    for name in ("15", "15c", "15d"):
+    card = card_line()
+    for name in ("15", "15c", "15d", "15f", "15g"):
         for line in reps[0]["phases"][name]["lines"]:
-            print(line, flush=True)
+            print(line + (f" [{card}]" if name in ("15f", "15g") else ""),
+                  flush=True)
         total = {k: sum(r["phases"][name]["launches"][k] for r in reps)
                  for k in KERNELS}
         print(f"phase {name}: kernel launches over the ranks {total} "

@@ -10,7 +10,9 @@ indices under ``staged``), every rank decodes every row and takes the
 weighted mean; only the identity pipeline ``all_reduce``s a dense plane,
 in the delta's own dtype.  Pipeline state (error-feedback residuals, DGC
 momentum) stays with its client: each rank holds its own row and only the
-payload crosses.
+payload crosses.  A population on the star is the one exception: every
+rank keeps a replica of the residual store, and the advanced rows cross
+under the ``store`` hop so that the replicas stay equal.
 
 Every collective goes through the wrappers below, which record
 a :class:`CollectiveRecord` ``(hop, op, dtype, bytes, seconds)`` in
@@ -42,7 +44,15 @@ from repro_torch.device import not_ported
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveRecord:
-    hop: str                 # wire, edge, cloud, mix, dense, metrics
+    """One collective call.  ``hop`` names the transport it belongs to:
+    ``wire`` (the star's uplink payloads), ``edge`` and ``cloud`` (hier),
+    ``mix`` (gossip), ``dense`` (SCAFFOLD's control), ``metrics`` (the
+    per-client losses and probes every rank reads) and ``store`` (a
+    population's advanced pipeline rows, all-gathered so that every
+    rank's replica of the residual store scatters the same rows: the
+    simulation's bookkeeping, not the protocol's bytes, which the ledger
+    does not bill)."""
+    hop: str                 # wire, edge, cloud, mix, dense, metrics, store
     op: str                  # all_gather, all_reduce, send
     dtype: torch.dtype
     nbytes: int              # this rank's operand
@@ -186,6 +196,20 @@ def stack_states(states):
         return tuple(stack_states([s[i] for s in states])
                      for i in range(len(first)))
     return first
+
+
+def all_gather_rows(st, mesh, axes, hop: str):
+    """This rank's (1,)-led state rows ``st`` gathered along ``axes``: the
+    same tree with every tensor (C,)-led, client-ordered (one
+    ``all_gather`` per tensor; other leaves are kept as they are)."""
+    if isinstance(st, torch.Tensor):
+        return torch.cat(all_gather(st, mesh, axes, hop))
+    if isinstance(st, dict):
+        done = {k: all_gather_rows(st[k], mesh, axes, hop) for k in sorted(st)}
+        return {k: done[k] for k in st}
+    if isinstance(st, tuple):
+        return tuple(all_gather_rows(v, mesh, axes, hop) for v in st)
+    return st
 
 
 def lead_state(st, ndim: int):

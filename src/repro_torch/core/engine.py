@@ -48,9 +48,12 @@ every round's transport is a real collective whose operand is the
 pipeline's encoded payload (:mod:`repro_torch.core.aggregation`).  The
 star runs the sim's hop list with three hops of its own (the rank's local
 update with the losses gathered, the collective wire, SCAFFOLD's control
-over a dense all-reduce); hier has the edge hop within each pod every
-round and the cloud hop across pods every ``sync_every`` rounds; gossip
-mixes each node's payload into its graph neighbours point to point.
+over a dense all-reduce), and over a population the sim's cohort and
+availability hops with a wire of its own (each rank a replica of the
+residual store, the advanced rows all-gathered); hier has the edge hop
+within each pod every round and the cloud hop across pods every
+``sync_every`` rounds; gossip mixes each node's payload into its graph
+neighbours point to point.
 Every other knob raises ``NotImplementedError`` naming the reference
 module that has it.  The client and server algorithms' state runs leaf by
 leaf: no hop builds a concatenation of the model or of C clients' rows.
@@ -680,12 +683,14 @@ def _attach_scenario(population, scenario):
 class _StarWire:
     """The star's own hops' transport (:func:`_build_star`): this rank's
     client index of C, the collective aggregator, the dense one for
-    SCAFFOLD's controls, and the gather of a (1,) per-client value into
-    the (C,) one every rank sees."""
+    SCAFFOLD's controls, the gather of a (1,) per-client value into the
+    (C,) one every rank sees, and the gather of (1,)-led pipeline rows
+    into the (C,)-led rows (a population's ``store`` hop)."""
     idx: int
     aggregate: Callable            # (deltas, weights, rng, comm) -> agg, comm
     aggregate_dense: Optional[Callable]   # (tree, weights, rng) -> agg
     gather: Callable               # (1,) -> (C,)
+    gather_rows: Callable          # (1,)-led rows -> (C,)-led rows
 
 
 def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
@@ -881,6 +886,24 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
                    n_sel=(weights > 0).sum().to(torch.float32))
         return ctx
 
+    def hop_star_population_wire(ctx):
+        # the star over a population (reference _star_population_wire):
+        # every rank holds a replica of the store and gathers the whole
+        # cohort's rows from it (so every replica's clock, slots and tail
+        # advance alike), its own client's row (cohort slot = client
+        # index) goes through the collective aggregator, and the advanced
+        # rows cross the client group so that every replica scatters the
+        # same C rows
+        weights, ids = ctx["weights"], ctx["ids"]
+        rows_in, st = store.gather(ctx["state"].comm_state, ids)
+        agg, row = star.aggregate(
+            ctx.pop("deltas"), weights, ctx["r_up"],
+            _index_state(rows_in, slice(star.idx, star.idx + 1)))
+        ctx.update(agg=agg, new_comm=store.scatter(st, ids,
+                                                   star.gather_rows(row)),
+                   n_sel=(weights > 0).sum().to(torch.float32))
+        return ctx
+
     def hop_star_control(ctx):
         # SCAFFOLD on the star: this rank's c_i row (kept when unselected),
         # the weighted mean of the rows' changes over a dense all-reduce
@@ -1000,9 +1023,12 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
     if simulator and fl.cmfl_threshold > 0:
         hops.append(("cmfl", hop_cmfl))
     # a stateless pipeline keeps no per-client rows: no store
-    hops.append(("wire", hop_star_wire if not simulator
-                 else hop_population_wire if store is not None
-                 else hop_wire))
+    if simulator:
+        wire = hop_population_wire if store is not None else hop_wire
+    else:
+        wire = hop_star_population_wire if store is not None \
+            else hop_star_wire
+    hops.append(("wire", wire))
     if fl.algorithm == "scaffold":
         hops.append(("control", hop_control if simulator
                      else hop_star_control))
@@ -1089,11 +1115,17 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
     (:func:`repro_torch.core.aggregation.make_aggregator`).  A rank's state
     is the params, the server optimizer's state and SCAFFOLD's server
     control (all replicated), its own pipeline row and its own ``c_i``
-    row; its batch is its client's slice with the (C,) metadata."""
-    if population is not None:
-        raise not_ported("a ClientPopulation on the star topology (the "
-                         "star's population leg, _star_population_wire)",
-                         "repro.core.engine")
+    row; its batch is its client's slice with the (C,) metadata.
+
+    With a ``population`` (cohort C, one cohort slot per rank: slot c is
+    client index c) each round samples the cohort (the ``cohort`` hop) and
+    the rank trains cohort slot ``idx`` from the batch of
+    ``data.pipeline.cohort_data_fn``.  The pipeline state is the
+    reference's replicated residual store: every rank holds all of it,
+    gathers the whole cohort's rows, advances its own through the
+    collective wire and scatters the C advanced rows, which cross under
+    the ``store`` hop, so the replicas stay bit-identical.  SCAFFOLD and
+    a cohort other than C raise the reference's ``ValueError``."""
     client_axis = topo.client_axis or model.cfg.client_axis
     if client_axis == "pod":
         raise not_ported("pod-level clients (client_axis='pod', the FSDP "
@@ -1106,6 +1138,20 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
     terms, up, down = ledger_terms(model, fl)
     scaffold = fl.algorithm == "scaffold"
     scenario = _fl_scenario(fl)
+    population = _attach_scenario(population, scenario)
+    store, aux = None, {}
+    if population is not None:
+        if scaffold:
+            raise ValueError(
+                "scaffold keeps dense (C, model) client controls — "
+                "incompatible with a streaming ClientPopulation")
+        if population.cohort != C:
+            raise ValueError(
+                f"star topology dispatches one cohort slot per mesh client "
+                f"({C}); got population.cohort={population.cohort}")
+        # a stateless pipeline keeps no per-client rows: no store
+        store = population.make_store(up, model.defs, device)
+        aux = dict(population=population, store=store)
     # the rank's own client: a dispatch body of one
     dispatch = make_dispatch(model, fl, up, down, 1, chunk,
                              scenario=scenario)
@@ -1116,10 +1162,16 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
         aggregate=aggregation.make_aggregator(mesh, up, client_axis),
         aggregate_dense=(lambda t, w, r: dense(t, w, r, None)[0])
         if scaffold else None,
-        gather=_gather_cat(mesh, axes))
+        gather=_gather_cat(mesh, axes),
+        gather_rows=lambda rows: aggregation.all_gather_rows(
+            rows, mesh, axes, "store"))
     tele = _telemetry_spec(fl, up, down, model.param_sizes())
-    program = _build_server_program(fl, terms, dispatch, C, device=device,
-                                    scenario=scenario, tele=tele, star=star)
+    if tele is not None:
+        aux["telemetry"] = tele
+    program = _build_server_program(fl, terms, dispatch, C,
+                                    population=population, store=store,
+                                    device=device, scenario=scenario,
+                                    tele=tele, star=star)
 
     def state_from_params(params):
         def zeros(lead=()):
@@ -1131,7 +1183,8 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
             server_opt_state=server_opt.init_state(fl.server_opt, params),
             control=zeros() if scaffold else None,
             client_controls=zeros((1,)) if scaffold else None,
-            comm_state=(comm_state_init(up, params, 1, device)
+            comm_state=(store.init() if store is not None
+                        else comm_state_init(up, params, 1, device)
                         if up.stateful else None),
             rng=PRNGKey(fl.seed), round=0)
 
@@ -1146,8 +1199,7 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
 
     return RoundEngine(topology=topo, round_fn=program, init_fn=init_fn,
                        state_from_params=state_from_params, n_clients=C,
-                       terms=terms, device=device,
-                       aux=({"telemetry": tele} if tele is not None else {}),
+                       terms=terms, device=device, aux=aux,
                        mesh=mesh, local_batch=local_batch)
 
 

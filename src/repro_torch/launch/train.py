@@ -89,10 +89,21 @@ spawning:
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 2 \
         --dist-backend gloo --hierarchical --sync-every 2
 
+With ``--nproc``, ``--trace`` writes rank 0's trace (topology ``star`` or
+``hier``) with every rank's telemetry on, ``--profile-dir`` has every rank
+write its own ``torch.profiler`` trace (``rank<r>.*``) into DIR, and
+``--checkpoint`` saves rank 0's final params (hier: pod 0's model):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 \
+        --device cpu --dist-backend gloo --compressor "topk:0.05>>qsgd:8" \
+        --trace run.jsonl --profile-dir prof --checkpoint ckpt.npz
+
 One card cannot hold two NCCL ranks of one communicator, so on one card
 several ranks share it over gloo (staging each collective through the
 host) and NCCL runs at one rank.  ``--model-parallel`` above 1 (the model
-axis) is not ported.
+axis) is not ported.  ``--population`` stays on the single-process path,
+as in the reference; a population on the star is built through
+``make_round_engine(..., Topology.star(), mesh=, population=)``.
 
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
 ``--device cpu`` is given.
@@ -362,9 +373,6 @@ def _spawn(args, argv):
         raise ValueError("--nproc runs the star (or --hierarchical) "
                          "topology; --population and --async run in one "
                          "process")
-    if args.trace or args.profile_dir or args.checkpoint:
-        raise not_ported("--trace / --profile-dir / --checkpoint with "
-                         "--nproc", "repro.launch.train")
     resolve_device(args.device)          # no card and no --device cpu: fail
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
@@ -387,7 +395,17 @@ def _rank_entry(rank, nproc, init_method, argv):
 def _rank_main(rank, nproc, init_method, args):
     """One rank of --nproc: join the group (``init_method`` None: the
     process already is a rank of one), build the star or hier engine for
-    this rank's client, run the rounds; rank 0 prints."""
+    this rank's client, run the rounds; rank 0 prints.  Returns this
+    rank's final state and stacked metrics.
+
+    ``--trace`` turns the telemetry on in every rank; rank 0 alone owns
+    the Tracer (topology ``star`` or ``hier``): its round spans, its
+    ``eval`` events, the ``stages`` and ``round`` records.
+    ``--profile-dir`` (with ``--trace``) runs every rank's rounds under
+    ``torch.profiler``, each rank writing its own trace into the
+    directory, its file name starting ``rank<r>``.  ``--checkpoint``:
+    rank 0 saves the global params (the star's replicated params, hier's
+    pod 0 model) while the other ranks wait at a barrier."""
     import torch
     import torch.distributed as dist
 
@@ -399,6 +417,7 @@ def _rank_main(rank, nproc, init_method, args):
                                             sample_round)
     from repro_torch.launch.mesh import init_ranks, make_mesh, rank_device
     from repro_torch.models.model import Model
+    from repro_torch.obs.trace import Tracer, profiler
 
     if init_method is None:
         dev = rank_device(args.dist_backend, args.device, rank, nproc)
@@ -427,7 +446,8 @@ def _rank_main(rank, nproc, init_method, args):
                       scenario_availability=args.scenario_availability,
                       scenario_dropout=args.scenario_dropout,
                       scenario_epoch_scale=args.scenario_epoch_scale,
-                      scenario_seed=args.scenario_seed, seed=args.seed)
+                      scenario_seed=args.scenario_seed, seed=args.seed,
+                      telemetry=bool(args.trace))
         if args.hierarchical:
             G = 2 if nproc > 1 and nproc % 2 == 0 else 1
             mesh = make_mesh({"pod": G, "data": nproc // G, "model": 1}, dev)
@@ -440,6 +460,11 @@ def _rank_main(rank, nproc, init_method, args):
         devices = [None] * nproc
         dist.all_gather_object(devices, str(dev))
         lead = rank == 0
+        tracer = None
+        if lead and args.trace:
+            tracer = Tracer(args.trace, meta=dict(
+                arch=args.arch, topology=topo.kind, rounds=args.rounds,
+                compressor=args.compressor, algorithm=args.algorithm))
         if lead:
             print(f"{topo.kind} mesh={mesh.shape} ranks={nproc} "
                   f"backend={mesh.backend} devices={devices} "
@@ -470,8 +495,10 @@ def _rank_main(rank, nproc, init_method, args):
 
         state = engine.init_fn(args.seed)
         t0 = time.perf_counter()
-        state, ms = run_rounds(engine, state, data_fn, args.rounds,
-                               metrics_fn=metrics_fn)
+        with profiler(args.profile_dir if args.trace else "",
+                      worker=f"rank{rank}"):
+            state, ms = run_rounds(engine, state, data_fn, args.rounds,
+                                   metrics_fn=metrics_fn, tracer=tracer)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t0
@@ -485,9 +512,17 @@ def _rank_main(rank, nproc, init_method, args):
                   f"ratio={float(ms['ledger'].compression_ratio()[i]):.1f}x"
                   + (f" eval={ev_loss:.3f}" if ev_loss == ev_loss else ""),
                   flush=True)
+            if tracer is not None and ev_loss == ev_loss:
+                tracer.event("eval", round=i, loss=ev_loss)
         if lead:
             print(f"{args.rounds} rounds in {secs:.2f}s on {nproc} ranks",
                   flush=True)
+            _finish(args, tracer, engine, ms, state.params)
+        if args.checkpoint:
+            # the checkpoint exists once every rank passes
+            dist.barrier(**({"device_ids": [dev.index]}
+                            if mesh.backend == "nccl" else {}))
+        return state, ms
     finally:
         if init_method is not None:
             dist.destroy_process_group()

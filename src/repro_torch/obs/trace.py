@@ -89,18 +89,8 @@ class Tracer:
 
     # --------------------------------------------------------- torch helpers
     def profile(self):
-        """Context manager: ``torch.profiler`` (CPU, and CUDA where there
-        is a card) around the run, writing a Chrome / TensorBoard trace
-        into ``profile_dir`` when one was given; else a no-op."""
-        if not self.profile_dir:
-            return contextlib.nullcontext()
-        import torch
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        return torch.profiler.profile(
-            activities=acts, on_trace_ready=torch.profiler
-            .tensorboard_trace_handler(self.profile_dir))
+        """:func:`profiler` into this tracer's ``profile_dir``."""
+        return profiler(self.profile_dir)
 
     def emit_rounds(self, metrics, spec=None) -> None:
         """Write ``run_rounds``' stacked metrics as one ``round`` record
@@ -130,6 +120,22 @@ class Tracer:
                 row[k] = (_json_scalar(x) if x.ndim == 0 else
                           [_json_scalar(y) for y in x.ravel()])
             self._write(dict(kind="round", round=i, m=row))
+
+
+def profiler(profile_dir: str, worker: str = None):
+    """Context manager: ``torch.profiler`` (CPU, and CUDA where there is a
+    card) around a run, writing a Chrome / TensorBoard trace into
+    ``profile_dir`` (its file name starts with ``worker`` when one is
+    given, e.g. a rank's ``rank2``); a no-op without a directory."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=torch.profiler
+        .tensorboard_trace_handler(profile_dir, worker_name=worker))
 
 
 # ---------------------------------------------------------------------------

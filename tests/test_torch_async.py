@@ -354,9 +354,11 @@ def test_async_unported_knobs_raise(kw, module, given_local_update,
     """The telemetry knob, once rejected here, now runs: 4 events whose
     ``RoundStats`` (one upload, the flush's downlink slots, the one-hot
     staleness, the buffer fill, the dropout) equal the reference's bit for
-    bit, as does the run; the star's population leg, which the port still
-    lacks, raises naming the reference module.  (Telemetry under secagg:
-    test_torch_obs.py.)"""
+    bit, as does the run; the star's population leg, once rejected too
+    (naming ``module``), builds with the same knobs: the cohort hop first
+    after rng and the telemetry hop before finalize.  (Telemetry under
+    secagg: test_torch_obs.py; the star's population leg against the
+    reference: test_torch_mesh_population.py.)"""
     from repro_torch.core import scenario as scn_t
     monkeypatch.setattr(scn_t, "PRNGKey",
                         lambda seed: JaxKey(jax.random.PRNGKey(seed)))
@@ -375,10 +377,13 @@ def test_async_unported_knobs_raise(kw, module, given_local_update,
     _, mt = models()
     mesh = Mesh(shape={"data": C, "model": 1}, rank=0,
                 device=torch.device("cpu"), backend="gloo", groups={})
-    with pytest.raises(NotImplementedError, match=module):
-        ET.make_round_engine(mt, FLConfig(**kw), ET.Topology.star(),
-                             mesh=mesh, population=pop_t.ClientPopulation(
-                                 n_clients=100, cohort=C))
+    star = ET.make_round_engine(mt, FLConfig(**kw), ET.Topology.star(),
+                                mesh=mesh, population=pop_t.ClientPopulation(
+                                    n_clients=100, cohort=C))
+    hops = [h for h, _ in star.round_fn.hops]
+    assert hops[:2] == ["rng", "cohort"] and hops[-2:] == ["telemetry",
+                                                           "finalize"]
+    assert star.aux["telemetry"].up_names
 
 
 @pytest.mark.parametrize("population", [False, True])

@@ -65,9 +65,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_knobs_raise_naming_the_reference_module():
-    """The star, hier and gossip topologies are ported (their guards are in
-    test_torch_topology.py); what stays out raises naming its module: a
-    population on the star, pod-level clients, a model axis above 1."""
+    """The star (with or without a population), hier and gossip topologies
+    are ported (their guards are in test_torch_topology.py and
+    test_torch_mesh_population.py); what stays out raises naming its
+    module: pod-level clients, a model axis above 1."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import Topology, make_round_engine
     from repro_torch.core.population import ClientPopulation
@@ -82,10 +83,9 @@ def test_unported_knobs_raise_naming_the_reference_module():
     pods = M.Mesh(shape={"pod": 2, "data": 2, "model": 1}, rank=0,
                   device=torch.device("cpu"), backend="gloo", groups={})
     pop = ClientPopulation(n_clients=100, cohort=4)
+    assert make_round_engine(model, fl, Topology.star(), mesh=data4,
+                             population=pop).aux["population"] == pop
     for call, module in (
-            (lambda: make_round_engine(model, fl, Topology.star(),
-                                       mesh=data4, population=pop),
-             "repro.core.engine"),
             (lambda: make_round_engine(model, fl, Topology.star("pod"),
                                        mesh=pods), "repro.models.sharding"),
             (lambda: M.make_mesh({"data": 2, "model": 2},

@@ -369,9 +369,10 @@ def test_telemetry_on_equals_off(runs):
 
 def test_guards_and_not_ported_messages():
     """The reference's hier and gossip guards (population, scenario,
-    SCAFFOLD, DGC), a mesh-less mesh topology, and the knobs this slice
-    does not run: a population on the star, pod-level clients, a model
-    axis."""
+    SCAFFOLD, DGC), a mesh-less mesh topology, and the knobs the port does
+    not run: pod-level clients, a model axis.  A population on the star
+    builds (its guards and rounds are in
+    test_torch_mesh_population.py)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.population import ClientPopulation
     from repro_torch.launch import mesh as M
@@ -401,9 +402,9 @@ def test_guards_and_not_ported_messages():
         ET.make_round_engine(model, FLConfig(uplink_compressor="topk",
                                              dgc_momentum=0.9),
                              ET.Topology.gossip(), mesh=fake)
-    with pytest.raises(NotImplementedError, match="repro.core.engine"):
-        ET.make_round_engine(model, FLConfig(), ET.Topology.star(),
-                             mesh=fake, population=pop)
+    star = ET.make_round_engine(model, FLConfig(), ET.Topology.star(),
+                                mesh=fake, population=pop)
+    assert [h for h, _ in star.round_fn.hops][:2] == ["rng", "cohort"]
     with pytest.raises(NotImplementedError, match="repro.models.sharding"):
         ET.make_round_engine(model, FLConfig(), ET.Topology.star("pod"),
                              mesh=pods)

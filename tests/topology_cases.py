@@ -152,8 +152,9 @@ def threefry2x32(k1, k2, x1, x2):
 
 class NumpyKey:
     """A raw ``jax.random`` key (two uint32) behind the port's key
-    interface (``split``, ``fold_in``, ``uniform``, ``bits``): the draws of
-    ``jax.random`` under its default partitionable threefry, in numpy."""
+    interface (``split``, ``fold_in``, ``uniform``, ``bits``, ``randint``,
+    ``permutation``): the draws of ``jax.random`` under its default
+    partitionable threefry, in numpy."""
 
     def __init__(self, k):
         self.k = (np.uint32(k[0]), np.uint32(k[1]))
@@ -189,6 +190,43 @@ class NumpyKey:
         import torch
         v = self._bits32(tuple(shape)).astype(f"uint{int(width)}")
         return torch.from_numpy(v.astype(np.int64)).to(device)
+
+    def randint(self, low, high, shape, device):
+        import torch
+        return torch.from_numpy(self.randint_np(low, high, shape)).to(device)
+
+    def randint_np(self, low, high, shape):
+        """``jax.random.randint`` in int32 (bounds below 2^31), as int64
+        numpy: two words of bits from a split, each reduced mod the span,
+        joined with the multiplier ``(2^16 mod span)^2 mod span``, all in
+        wrapping uint32."""
+        shape = tuple(shape)
+        k1, k2 = self.split(2)
+        hi = k1._bits32(shape).astype(np.uint64)
+        lo = k2._bits32(shape).astype(np.uint64)
+        span = np.uint64(high - low if high > low else 1)
+        mask = np.uint64(0xFFFFFFFF)
+        # jax's (2^16 mod span)^2 mod span, its square wrapping in uint32
+        mult = ((np.uint64((1 << 16) % int(span)) ** np.uint64(2)) & mask) \
+            % span
+        off = (((hi % span) * mult) & mask) + lo % span
+        off = (off & mask) % span
+        return np.asarray(np.int64(low) + off.astype(np.int64),
+                          np.int64).reshape(shape)
+
+    def permutation(self, n, device):
+        """``jax.random.permutation(key, n)``: rounds of a stable sort of
+        ``arange(n)`` by fresh 32-bit keys, as many as ``jax``'s
+        ``_shuffle`` takes (``ceil(3 ln n / ln(2^32 - 1))``)."""
+        import torch
+        x = np.arange(n, dtype=np.int64)
+        key = self
+        rounds = int(np.ceil(3 * np.log(max(1, n))
+                             / np.log(np.iinfo(np.uint32).max)))
+        for _ in range(rounds):
+            key, sub = key.split(2)
+            x = x[np.argsort(sub._bits32((n,)), kind="stable")]
+        return torch.from_numpy(x).to(device)
 
 
 def _ledger_np(led, out, key):
