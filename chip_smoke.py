@@ -271,9 +271,39 @@ line is printed):
      nccl`` for the star and ``--hierarchical`` (pod 1 x data 1): the
      NCCL path built and run on the card (its rank's launches stay in its
      process);
+  15f. in 15's group, the star over a ``ClientPopulation``, every rank a
+     replica of the residual store: n = cohort = capacity = 4 against the
+     dense star, 12 clients into 8 slots under ``drop``, 10^6 under
+     ``sketch``, the 12 at availability 0.75 under the diurnal trace;
+     store digests equal on every rank every round, the ``store`` hop one
+     f32 EF row a rank a round, the backends bit-identical;
+  15g. in 15's group, ``train.main`` with ``--nproc 4`` in each rank and
+     ``--trace``, ``--profile-dir`` and ``--checkpoint`` (star and hier):
+     each trace validated and rendered, the checkpoint restored
+     bit-equal, the params equal to the untraced run's;
+  15h. in 15's group, the star on a model axis (``MODEL_AXIS_MESH``,
+     data 2 x model 2: rank r is client r // 2's model rank r % 2,
+     training the client's whole update and encoding its block of every
+     leaf), 3 rounds on each backend of the identity FedSGD wire, EF
+     ``topk:0.05>>qsgd:8``, EF ``topk:0.05>>qsgd:4@fused``,
+     ``ternary@fused``, SCAFFOLD on ``qsgd:8``, the fused chain
+     ``>>secagg`` and a population of 6 clients, cohort 2, 4 slots under
+     ``drop``: params (and the store replicas) bit-equal on all 4 ranks
+     after every round, each rank's wire operand its blocks' payload, the
+     ``model`` rebuild hop and SCAFFOLD's ``dense`` hop its f32 blocks,
+     the ledger the whole leaves' terms (the gap to the ranks' wire sum
+     printed), the backends bit-identical (ternary at engine scope), the
+     masked chain equal to the clear one, and the identity run equal to
+     the same rounds at data 2 x model 1 (the sim over 2 clients);
+  15i. in 15b's group, after its rounds: llama3_2_1b uncut as one client
+     at data 1 x model 2, 2 rounds of EF ``topk:0.05>>qsgd:4@fused``
+     through the kernels: each rank's peak memory, round times,
+     collective share and bytes by hop, params bit-equal on both ranks
+     every round;
   16. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
-     10b, 11, 12, 12b, 13, 13b, 13c, 14, 14b, 14c, 15, 15b, 15c, 15d),
+     10b, 11, 12, 12b, 13, 13b, 13c, 14, 14b, 14c, 15, 15b, 15c, 15d, 15f,
+     15g, 15h, 15i),
      each counted from 0 just before its phase (the count sketch's by
      path too, each of which must launch); the pack and unpack kernels are
      on no path and count their phase-3 calls;
@@ -550,6 +580,36 @@ POP_STAR_RUNS = (
 CLI_RANK_RUNS = (("star", []),
                  ("hier", ["--hierarchical", "--sync-every", "2"]))
 CLI_RANK_KERNELS = ("threshold_sparsify", "qsgd_quantize", "qsgd_pack")
+# phase 15h: the star on a model axis, data 2 x model 2 on the same 4
+# ranks, each rank encoding its block of every leaf: (label, FLConfig
+# knobs, kernels the kernel backend may launch, kernels it must launch;
+# a block's top-k carrier may be odd, which the unpacked QSGD kernel
+# quantizes under @fused)
+MODEL_AXIS_MESH = {"data": 2, "model": 2}
+MODEL_AXIS_ROUNDS = 3
+_FUSED = ("threshold_sparsify", "qsgd_quantize", "qsgd_pack")
+MODEL_AXIS_CHAINS = (
+    ("fedsgd identity", dict(algorithm="fedsgd", local_steps=1,
+                             uplink_compressor="none"), (), ()),
+    ("EF topk:0.05>>qsgd:8", dict(uplink_compressor=CHAINS[0]),
+     ("threshold_sparsify", "qsgd_quantize"),
+     ("threshold_sparsify", "qsgd_quantize")),
+    ("EF topk:0.05>>qsgd:4@fused", dict(uplink_compressor=CHAINS[1]),
+     _FUSED, ("threshold_sparsify", "qsgd_pack")),
+    ("ternary packed", dict(uplink_compressor="ternary@fused"),
+     ("ternarize_pack",), ("ternarize_pack",)),
+    ("SCAFFOLD qsgd:8", dict(algorithm="scaffold",
+                             uplink_compressor="qsgd:8"),
+     ("qsgd_quantize",), ("qsgd_quantize",)),
+    ("EF topk:0.05>>qsgd:4@fused>>secagg",
+     dict(uplink_compressor=CHAINS[1] + ">>secagg"), _FUSED,
+     ("threshold_sparsify", "qsgd_pack")),
+)
+MODEL_AXIS_POP = ("drop 6/2/4", dict(n_clients=6, cohort=2, capacity=4,
+                                     eviction="drop"),
+                  dict(uplink_compressor=CHAINS[0]),
+                  ("threshold_sparsify", "qsgd_quantize"),
+                  ("threshold_sparsify", "qsgd_quantize"))
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -4065,10 +4125,10 @@ def backend_pairs(runs, what, rank, skip_ctx=False, skip=(), loose=False):
 
 
 def topology_ranks(rank, world, init, out_dir):
-    """One of phase 15/15c/15d/15f/15g's 4 ranks on the card (gloo): the
-    star's chains, then hier at pod 2 x data 2, gossip, the star over a
-    population and the train CLI's ranks traced, each phase's kernel
-    launches counted from 0 in this rank."""
+    """One of phase 15/15c/15d/15f/15g/15h's 4 ranks on the card (gloo):
+    the star's chains, then hier at pod 2 x data 2, gossip, the star over
+    a population, the train CLI's ranks traced and the star on a model
+    axis, each phase's kernel launches counted from 0 in this rank."""
     dev = rank_setup(rank, world, init)
     import torch.distributed as dist
 
@@ -4083,12 +4143,14 @@ def topology_ranks(rank, world, init, out_dir):
     report = {"rank": rank, "device": str(dev), "phases": {}}
     mesh4 = make_mesh({"data": world, "model": 1}, dev)
     mesh22 = make_mesh({"pod": 2, "data": world // 2, "model": 1}, dev)
+    mesh_m = make_mesh(MODEL_AXIS_MESH, dev)
     cli = lambda *a: cli_rank_phase(*a, out_dir)          # noqa: E731
     for name, fn, mesh in (("15", star_rank_phase, mesh4),
                            ("15c", hier_rank_phase, mesh22),
                            ("15d", gossip_rank_phase, mesh4),
                            ("15f", population_star_phase, mesh4),
-                           ("15g", cli, mesh4)):
+                           ("15g", cli, mesh4),
+                           ("15h", model_axis_phase, mesh_m)):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         lines = fn(rank, model, mesh, dev, devices)
@@ -4582,22 +4644,238 @@ def cli_rank_phase(rank, model, mesh, dev, devices, out_dir):
     return lines
 
 
+def model_blocks(model, mesh):
+    """Each leaf's model dim and its block's element count on ``mesh``
+    (``repro_torch.models.sharding``, as the star's engine cuts them)."""
+    from repro_torch.models import sharding
+    shapes = {n: tuple(d.shape) for n, d in model.defs.items()}
+    specs = sharding.tree_specs(shapes, model.logical_axes(), mesh,
+                                model.cfg.fsdp)
+    dims = {n: sharding.model_dim(sp) for n, sp in specs.items()}
+    M = mesh.shape["model"]
+    return dims, [int(torch.Size(sharding.block_shape(s, dims[n], M))
+                      .numel()) for n, s in shapes.items()]
+
+
+def block_payload(spec, sizes, dev):
+    """One rank's payload bytes for blocks of ``sizes`` (the identity
+    wire: its f32 all-reduce operand), from the plain pipeline."""
+    from repro_torch.compress.api import make_compressor
+    from repro_torch.compress.wire_format import payload_nbytes
+    if spec == "none":
+        return 4 * sum(sizes)
+    up = make_compressor(spec, backend="jax")
+    return sum(payload_nbytes(up, n, device=dev) for n in sizes)
+
+
+def model_axis_run(rank, eng, data_fn, rounds, what, pop=False):
+    """``rounds`` rounds of a star engine on a model axis, each
+    synchronised and timed, with its collective records; after every
+    round a digest of the params (and of the store) is compared across
+    the ranks, every one of which must hold the same."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.engine import stack_rows
+    state = eng.init_fn(0)
+    before = launch_counts()
+    ms, times, recs = [], [], []
+    for r in range(rounds):
+        aggregation.COLLECTIVES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = eng.round_fn(state, eng.local_batch(
+            data_fn(state.round)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        recs.append(list(aggregation.COLLECTIVES))
+        ms.append(m)
+        mine = (store_digest(state.params),
+                store_digest(state.comm_state) if pop else "")
+        if any(o != mine for o in gather_object(mine)):
+            rank_fail(rank, f"15h {what}: params bit-equal on all ranks "
+                            f"failed after round {r} (or the store "
+                            f"replicas differ)")
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    return state, stack_rows(ms), times, recs, ran
+
+
+def model_axis_checks(rank, eng, ms, recs, ran, backend, may, must, per,
+                      f32_blocks, what):
+    """15h's per-run checks: the kernels launched (on the kernel backend
+    those of ``must``, none outside ``may``; on the plain backend none),
+    each rank's ``wire`` operand its blocks' payload ``per`` every round,
+    the rebuild hop ``model`` (and SCAFFOLD's ``dense``) its f32 blocks,
+    the ledger the selected clients' whole-leaf term in f32.  Returns the
+    line's byte figures."""
+    for name, count in ran.items():
+        bad = (count > 0 and (backend != "kernel" or name not in may)) or (
+            count == 0 and backend == "kernel" and name in must)
+        if bad:
+            rank_fail(rank, f"15h {what}: launches: {name} launched "
+                            f"{count} times")
+    rounds = len(recs)
+    got = wire_bytes(recs, "wire")
+    if got != [per] * rounds:
+        rank_fail(rank, f"15h {what}: wire operand {got} != its blocks' "
+                        f"payload {per} a round")
+    scaffold = "SCAFFOLD" in what
+    identity = "identity" in what
+    want = {"model": f32_blocks if (identity or scaffold) else 0,
+            "dense": f32_blocks if scaffold else 0}
+    for hop, w in want.items():
+        b = wire_bytes(recs, hop)
+        if b != [w] * rounds:
+            rank_fail(rank, f"15h {what}: rebuild hop {hop} bytes {b} != "
+                            f"{w} (4 B x the rank's block elements)")
+    sel = [float(v) for v in ms["selected"]]
+    led = [float(v) for v in ms["ledger"].uplink_wire.tolist()]
+    term = eng.terms["up_wire"]
+    if led != [float(torch.tensor(n, dtype=torch.float32)
+                     * torch.tensor(term, dtype=torch.float32))
+               for n in sel]:
+        rank_fail(rank, f"15h {what}: ledger {led} != selected {sel} x the "
+                        f"whole-leaf term {term}")
+    total = sum_ranks(sum(got))
+    return (f"wire {per:,} B a rank a round (its blocks' payload), the "
+            f"ranks' sum {total:,} B over {rounds} rounds against the "
+            f"ledger's {sum(led):,.0f} B of whole leaves (gap "
+            f"{total - sum(led):+,.0f} B"
+            + ("; the ledger bills SCAFFOLD's control, which crosses the "
+               "dense hop" if scaffold else "") + ")"
+            + (f", rebuild hop 'model' {want['model']:,} B a rank a round"
+               if want["model"] else ""))
+
+
+def model_axis_phase(rank, model, mesh, dev, devices):
+    """Phase 15h in one rank: the star at data 2 x model 2 (rank r is
+    client r // 2's model rank r % 2), MODEL_AXIS_CHAINS and the
+    population MODEL_AXIS_POP on both backends, MODEL_AXIS_ROUNDS rounds:
+    params bit-equal on all 4 ranks every round, backends bit-identical
+    (ternary at engine scope), the masked chain equal to the clear one,
+    the identity run equal to the same rounds at data 2 x model 1 (the
+    port's sim over 2 clients), the population's store replicas
+    bit-equal every round."""
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.core.population import ClientPopulation
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.pipeline import cohort_data_fn
+    C = mesh.shape["data"]
+    dims, bsizes = model_blocks(model, mesh)
+    f32_blocks = 4 * sum(bsizes)
+    data_fn = paper_data(model, C, dev)
+    lines, kernel_runs = [], {}
+    split = sum(d is not None for d in dims.values())
+    lines.append(f"phase 15h star on a model axis: mesh {mesh.shape}, rank "
+                 f"{mesh.rank} is client {mesh.axis_index('data')}'s model "
+                 f"rank {mesh.axis_index('model')}; {split} of {len(dims)} "
+                 f"paper_lm leaves split, a rank's blocks "
+                 f"{sum(bsizes):,} of {model.param_count():,} elements")
+    for label, kw, may, must in MODEL_AXIS_CHAINS:
+        runs = {}
+        for backend in ("kernel", "jax"):
+            fl = FLConfig(backend=backend, **dict(TOPO_FL, **kw))
+            eng = make_round_engine(model, fl, Topology.star(),
+                                    chunk=PAPER_LM_SEQ, mesh=mesh)
+            what = f"{label} {backend}"
+            st, ms, times, recs, ran = model_axis_run(
+                rank, eng, data_fn, MODEL_AXIS_ROUNDS, what)
+            per = block_payload(fl.uplink_compressor, bsizes, dev)
+            figures = model_axis_checks(rank, eng, ms, recs, ran, backend,
+                                        may, must, per, f32_blocks, what)
+            losses = [float(v) for v in ms["loss"]]
+            if not all(v == v and abs(v) < 1e6 for v in losses):
+                rank_fail(rank, f"15h {what}: loss {losses}")
+            by_hop = {h: [sum(r.seconds for r in rr if r.hop == h)
+                          for rr in recs] for h in ("wire", "model", "dense",
+                                                    "metrics")}
+            runs[backend] = (st, ms)
+            lines.append(
+                f"phase 15h {label} backend={backend}: round times "
+                f"{', '.join(f'{t:.3f}' for t in times)} s, collectives by "
+                f"hop: " + "; ".join(f"{h} {shares(v, times)}"
+                                     for h, v in by_hop.items() if any(v))
+                + f"; loss {fmt(losses)}, {figures}; params bit-equal on "
+                f"all {TOPO_RANKS} ranks every round, launches {ran}")
+        loose = "ternary" in label
+        n = backend_pairs(runs, f"15h {label}", rank, skip_ctx=True,
+                          loose=loose)
+        lines.append(f"phase 15h {label}: kernel and plain backends "
+                     + ("agree at engine scope (the kernel's mu sums in "
+                        "another order)" if loose else "bit-identical")
+                     + f" ({n} tensors)")
+        kernel_runs[label] = runs["kernel"]
+    # SecAgg on the blocks: the masked chain equals the clear one
+    n = backend_pairs({"kernel": kernel_runs[MODEL_AXIS_CHAINS[5][0]],
+                       "jax": kernel_runs[MODEL_AXIS_CHAINS[2][0]]},
+                      "15h masked vs clear", rank, skip_ctx=True,
+                      skip=("uplink_entropy",))
+    lines.append(f"phase 15h {MODEL_AXIS_CHAINS[5][0]}: masked == clear "
+                 f"bit for bit ({n} tensors)")
+    # the identity wire split by blocks changes nothing: the same rounds
+    # at data 2 x model 1, as the port's sim over the 2 clients
+    fl = FLConfig(backend="kernel", **dict(TOPO_FL,
+                                           **MODEL_AXIS_CHAINS[0][1]))
+    sim = make_round_engine(model, fl, Topology.sim(C), chunk=PAPER_LM_SEQ,
+                            device=dev)
+    ss = sim.init_fn(0)
+    for _ in range(MODEL_AXIS_ROUNDS):
+        ss, _ = sim.round_fn(ss, data_fn(ss.round))
+    star = kernel_runs[MODEL_AXIS_CHAINS[0][0]][0]
+    if not all(torch.equal(a, b) for a, b in zip(_tensors(star.params),
+                                                 _tensors(ss.params))):
+        rank_fail(rank, "15h identity: params at data 2 x model 2 differ "
+                        "from the same rounds at data 2 x model 1")
+    lines.append(f"phase 15h fedsgd identity: params after "
+                 f"{MODEL_AXIS_ROUNDS} rounds at data 2 x model 2 == at "
+                 f"data 2 x model 1 (the sim over {C} clients) bit for bit")
+    # the population: every rank a replica of the store, whole rows
+    label, pop_kw, fl_kw, may, must = MODEL_AXIS_POP
+    runs = {}
+    for backend in ("kernel", "jax"):
+        pop = ClientPopulation(**pop_kw)
+        pdata = cohort_data_fn(pop, fed_data(
+            model, pop.n_clients, PAPER_LM_SEQ, PAPER_LM_BATCH), dev)
+        fl = FLConfig(backend=backend, **dict(TOPO_FL, **fl_kw))
+        eng = make_round_engine(model, fl, Topology.star(),
+                                chunk=PAPER_LM_SEQ, mesh=mesh,
+                                population=pop)
+        what = f"population {label} {backend}"
+        st, ms, times, recs, ran = model_axis_run(
+            rank, eng, pdata, MODEL_AXIS_ROUNDS, what, pop=True)
+        per = block_payload(fl.uplink_compressor, bsizes, dev)
+        figures = model_axis_checks(rank, eng, ms, recs, ran, backend, may,
+                                    must, per, f32_blocks, what)
+        stored = wire_bytes(recs, "store")
+        if stored != [f32_blocks] * MODEL_AXIS_ROUNDS:
+            rank_fail(rank, f"15h {what}: store hop {stored} != the rank's "
+                            f"f32 EF blocks {f32_blocks}")
+        runs[backend] = (st, ms)
+        lines.append(f"phase 15h population {label} backend={backend}: "
+                     f"round times {', '.join(f'{t:.3f}' for t in times)} "
+                     f"s, {figures}, store hop {f32_blocks:,} B a rank a "
+                     f"round, the replicas bit-equal on every rank every "
+                     f"round, launches {ran}")
+    n = backend_pairs(runs, f"15h population {label}", rank)
+    lines.append(f"phase 15h population {label}: kernel and plain backends "
+                 f"bit-identical ({n} tensors)")
+    return lines
+
+
 def topology_phase(dev):
-    """Phases 15, 15c, 15d, 15f and 15g: one group of 4 ranks on the card
+    """Phases 15, 15c, 15d, 15f, 15g and 15h: one group of 4 ranks on the card
     over gloo (NCCL cannot put two ranks of one communicator on one card);
     each rank reports its launches per phase, added here to this
     process's counts."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     reps = run_group(topology_ranks, TOPO_RANKS, "phase15")
-    print(f"phases 15-15d, 15f, 15g: {TOPO_RANKS} ranks over gloo on "
+    print(f"phases 15-15d, 15f-15h: {TOPO_RANKS} ranks over gloo on "
           f"{[r['device'] for r in reps]}, {time.perf_counter() - t0:.1f}s "
           f"with the spawn on {card_line()}", flush=True)
     card = card_line()
-    for name in ("15", "15c", "15d", "15f", "15g"):
+    for name in ("15", "15c", "15d", "15f", "15g", "15h"):
         for line in reps[0]["phases"][name]["lines"]:
-            print(line + (f" [{card}]" if name in ("15f", "15g") else ""),
-                  flush=True)
+            print(line + (f" [{card}]" if name in ("15f", "15g", "15h")
+                          else ""), flush=True)
         total = {k: sum(r["phases"][name]["launches"][k] for r in reps)
                  for k in KERNELS}
         print(f"phase {name}: kernel launches over the ranks {total} "
@@ -4660,14 +4938,68 @@ def llama_star_ranks(rank, world, init, out_dir):
               "times": times, "coll": coll, "wire": got, "dtypes":
               sorted(dts), "launches": launches, "losses": losses,
               "ledger": led}
+    del state, ms, eng
+    report["15i"] = llama_model_axis(rank, world, model, fl, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()
 
 
+def llama_model_axis(rank, world, model, fl, dev):
+    """Phase 15i in one of 15b's ranks: llama3_2_1b uncut as ONE client at
+    data 1 x model ``world``, each rank training the client's whole update
+    and encoding its block of every leaf, LLAMA_ROUNDS rounds through the
+    kernels: the peak memory, round times, collective seconds and bytes
+    by hop, params bit-equal on every rank every round."""
+    import gc
+
+    from repro_torch.core.engine import Topology, make_round_engine
+    from repro_torch.data.synthetic import sample_round
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh({"data": 1, "model": world}, dev)
+    _, bsizes = model_blocks(model, mesh)
+    eng = make_round_engine(model, fl, Topology.star(), chunk=LLAMA_SEQ,
+                            mesh=mesh)
+    data = fed_data(model, 1, LLAMA_SEQ, LLAMA_BATCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.LAUNCHES.clear()
+    state, ms, times, recs, ran = model_axis_run(
+        rank, eng, lambda r: sample_round(data, r, dev), LLAMA_ROUNDS,
+        "15i llama3_2_1b")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name, count in ran.items():
+        if (count > 0 and name not in _FUSED) or (
+                count == 0 and name in ("threshold_sparsify", "qsgd_pack")):
+            rank_fail(rank, f"15i: {name} launched {count}")
+    losses = [float(v) for v in ms["loss"]]
+    if not all(v == v and abs(v) < 1e6 for v in losses) or not all(
+            bool(torch.isfinite(p.float()).all())
+            for p in state.params.values()):
+        rank_fail(rank, f"15i: loss or params not finite ({losses})")
+    per = block_payload(fl.uplink_compressor, bsizes, dev)
+    got = wire_bytes(recs, "wire")
+    led = [float(v) for v in ms["ledger"].uplink_wire.tolist()]
+    if got != [per] * LLAMA_ROUNDS or led != [float(torch.tensor(
+            eng.terms["up_wire"], dtype=torch.float32))] * LLAMA_ROUNDS:
+        rank_fail(rank, f"15i: wire bytes {got} (its blocks' payload "
+                        f"{per}), ledger {led}")
+    if peak >= LLAMA_PEAK_GIB:
+        rank_fail(rank, f"15i: peak {peak:.2f} GiB")
+    hops = sorted({r.hop for rr in recs for r in rr})
+    return {"peak_gib": peak, "times": times, "losses": losses,
+            "launches": ran, "ledger": led, "block_elems": sum(bsizes),
+            "bytes": {h: wire_bytes(recs, h) for h in hops},
+            "seconds": {h: [sum(r.seconds for r in rr if r.hop == h)
+                            for rr in recs] for h in hops}}
+
+
 def llama_star_phase(dev):
-    """Phase 15b: llama3_2_1b uncut as 2 ranks sharing the card over gloo
-    (one client each), 2 rounds through the kernels."""
+    """Phases 15b and 15i: llama3_2_1b uncut as 2 ranks sharing the card
+    over gloo, 2 rounds through the kernels: one client each (15b), then
+    one client on a model axis of 2 (15i)."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     reps = run_group(llama_star_ranks, LLAMA_CLIENTS, "phase15b")
@@ -4682,11 +5014,28 @@ def llama_star_phase(dev):
               f"{r['launches']}", flush=True)
     print(f"phase 15b: the ranks' wire bytes {LLAMA_CLIENTS} x "
           f"{reps[0]['wire'][0]:,} a round, in f32 == ledger "
-          f"{reps[0]['ledger']}, "
-          f"{time.perf_counter() - t0:.1f}s with the spawn, on "
+          f"{reps[0]['ledger']}, on {card_line()}", flush=True)
+    for r in reps:
+        i = r["15i"]
+        print(f"phase 15i llama3_2_1b star data 1 x model {LLAMA_CLIENTS} "
+              f"rank {r['rank']} (model rank {r['rank']}, its blocks "
+              f"{i['block_elems']:,} elements): peak memory "
+              f"{i['peak_gib']:.2f} GiB (15b's {r['peak_gib']:.2f}), round "
+              f"times {', '.join(f'{t:.3f}' for t in i['times'])} s, "
+              f"collectives by hop "
+              + "; ".join(f"{h} {shares(v, i['times'])}"
+                          for h, v in i["seconds"].items())
+              + ", bytes a round by hop "
+              + "; ".join(f"{h} {v[0]:,}" for h, v in i["bytes"].items())
+              + f", loss {fmt(i['losses'])}, params bit-equal on both "
+              f"ranks every round, launches {i['launches']}", flush=True)
+    wire = sum(r["15i"]["bytes"]["wire"][0] for r in reps)
+    print(f"phase 15i: the ranks' wire {wire:,} B a round against the "
+          f"ledger's whole leaves {reps[0]['15i']['ledger'][0]:,.0f} B; "
+          f"15b and 15i {time.perf_counter() - t0:.1f}s with the spawn, on "
           f"{card_line()}", flush=True)
-    build.LAUNCHES.update({k: sum(r["launches"][k] for r in reps)
-                           for k in KERNELS})
+    build.LAUNCHES.update({k: sum(r["launches"][k] + r["15i"]["launches"][k]
+                                  for r in reps) for k in KERNELS})
 
 
 def nccl_cli_phase(dev):

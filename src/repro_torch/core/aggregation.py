@@ -36,6 +36,7 @@ from repro_torch.compress.secure_agg import MASK_TAG, has_mask_ctx, \
     inject_mask_ctx
 from repro_torch.compress.wire_format import payload_planes
 from repro_torch.device import not_ported
+from repro_torch.models import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -51,8 +52,11 @@ class CollectiveRecord:
     population's advanced pipeline rows, all-gathered so that every
     rank's replica of the residual store scatters the same rows: the
     simulation's bookkeeping, not the protocol's bytes, which the ledger
-    does not bill)."""
-    hop: str                 # wire, edge, cloud, mix, dense, metrics, store
+    does not bill).  On a model axis ``model`` is the all-gather over the
+    model ranks of an identity aggregate's blocks, which rebuilds the
+    whole leaf on every rank: bookkeeping too, never billed."""
+    hop: str                 # wire, edge, cloud, mix, dense, metrics,
+    #                          store, model
     op: str                  # all_gather, all_reduce, send
     dtype: torch.dtype
     nbytes: int              # this rank's operand
@@ -158,7 +162,9 @@ def client_index(axes, mesh) -> int:
 def comm_state_init(pipe, params: dict, lead, device):
     """Zero pipeline state per leaf with leading client dim(s) ``lead``: the
     client count C, or a tuple such as ``(G, Ce)``; on a mesh each rank
-    holds its own row, ``lead`` 1 (star, gossip) or ``(1, 1)`` (hier)."""
+    holds its own row, ``lead`` 1 (star, gossip) or ``(1, 1)`` (hier).
+    ``params`` maps each leaf to a tensor or to a shape (a model rank's
+    block of the leaf on the star's model axis)."""
     lead = (lead,) if isinstance(lead, int) else tuple(lead)
 
     def zeros(t):
@@ -170,8 +176,34 @@ def comm_state_init(pipe, params: dict, lead, device):
         if isinstance(t, tuple):
             return tuple(zeros(v) for v in t)
         return t
-    return tuple(zeros(pipe.init(tuple(p.shape), device="meta"))
+    return tuple(zeros(pipe.init(tuple(getattr(p, "shape", p)),
+                                 device="meta"))
                  for p in params.values())
+
+
+def check_model_axis_state(pipe, shapes) -> None:
+    """Raise unless every array of ``pipe``'s per-leaf state is shaped like
+    its leaf (error-feedback residuals, DGC's ``u`` and ``v``) or is a
+    SecAgg mask context, for each shape of ``shapes``: on a model axis
+    such state splits into the rank's block, while other state (DGC
+    warm-up's round counter) would be replicated over the model ranks, a
+    layout the port does not hold to the reference."""
+    def walk(node, shape, key=None):
+        if isinstance(node, torch.Tensor):
+            if tuple(node.shape) != shape and key not in ("mask_idx",
+                                                          "mask_cohort"):
+                raise not_ported(
+                    f"{pipe.name!r} on a model axis (its state "
+                    f"{key!r} is not shaped like the leaf)",
+                    "repro.core.aggregation")
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, shape, k)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v, shape, key)
+    for shape in shapes:
+        walk(pipe.init(tuple(shape), device="meta"), tuple(shape))
 
 
 def index_state(st, c):
@@ -198,17 +230,32 @@ def stack_states(states):
     return first
 
 
-def all_gather_rows(st, mesh, axes, hop: str):
+def all_gather_rows(st, mesh, axes, hop: str, dim=None, shape=None):
     """This rank's (1,)-led state rows ``st`` gathered along ``axes``: the
     same tree with every tensor (C,)-led, client-ordered (one
-    ``all_gather`` per tensor; other leaves are kept as they are)."""
+    ``all_gather`` per tensor; other leaves are kept as they are).
+
+    On a model axis (``mesh.shape["model"]`` M > 1) the gather runs over
+    ``axes`` and ``model`` and the rows are one leaf's rank blocks: a
+    tensor shaped ``(1, *shape)``, a block along the leaf dim ``dim``, is
+    rebuilt from the M model ranks' blocks of each client, any other
+    tensor is model rank 0's."""
+    M = mesh.shape.get("model", 1)
     if isinstance(st, torch.Tensor):
-        return torch.cat(all_gather(st, mesh, axes, hop))
+        if M == 1:
+            return torch.cat(all_gather(st, mesh, axes, hop))
+        g = all_gather(st, mesh, tuple(axes) + ("model",), hop)
+        if dim is not None and tuple(st.shape[1:]) == tuple(shape):
+            return torch.cat([sharding.unblock(g[c:c + M], dim, lead=1)
+                              for c in range(0, len(g), M)])
+        return torch.cat(g[::M])
     if isinstance(st, dict):
-        done = {k: all_gather_rows(st[k], mesh, axes, hop) for k in sorted(st)}
+        done = {k: all_gather_rows(st[k], mesh, axes, hop, dim, shape)
+                for k in sorted(st)}
         return {k: done[k] for k in st}
     if isinstance(st, tuple):
-        return tuple(all_gather_rows(v, mesh, axes, hop) for v in st)
+        return tuple(all_gather_rows(v, mesh, axes, hop, dim, shape)
+                     for v in st)
     return st
 
 
@@ -273,14 +320,18 @@ def check_payload(pipe, payload):
     walk(payload)
 
 
-def gather_payload(pipe, payload, mesh, axes, hop: str) -> list:
-    """Every client's payload along ``axes``, in client order: each plane of
-    ``payload`` goes through one ``all_gather``."""
+def gather_payload(pipe, payload, mesh, axes, hop: str,
+                   per: int = 1) -> list:
+    """Every rank's payload along ``axes``, in axis order: each plane of
+    ``payload`` goes through one ``all_gather``.  ``per`` ranks in a row
+    send for one client (a client's model ranks, model-minor): the SecAgg
+    context of row j is re-indexed to client ``j // per``."""
     check_payload(pipe, payload)
     gathered = [all_gather(t, mesh, axes, hop)
                 for t in payload_planes(payload)]
     n = len(mesh.group(axes)[1])
-    return [_rebuild(payload, [g[j] for g in gathered], j) for j in range(n)]
+    return [_rebuild(payload, [g[j] for g in gathered], j // per)
+            for j in range(n)]
 
 
 def permute_payload(pipe, payload, mesh, axis, pairs, src_of, hop: str):
@@ -310,7 +361,8 @@ def _zero_ctx(payload):
 # The aggregator
 # ---------------------------------------------------------------------------
 
-def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire"):
+def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire",
+                    specs: dict = None):
     """Returns ``aggregate(deltas, weights, rng, comm_state) -> (agg,
     new_comm_state)``.  ``deltas`` are this rank's ``{leaf name: (1, *leaf
     shape)}`` row, ``weights`` the (C,) aggregation weights (the same on
@@ -326,7 +378,20 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire"):
     (leaf, client) encodes with the key ``rng.fold_in(leaf).fold_in(client
     index)``, the reference star's, and a SecAgg stage masks over the
     whole client group (key ``rng.fold_in(MASK_TAG).fold_in(leaf)``, ring
-    index the client index, cohort C)."""
+    index the client index, cohort C).
+
+    On a model axis of M > 1 ranks (``specs``: ``{leaf name: spec}`` from
+    ``repro_torch.models.sharding``) every model rank holds its client's
+    whole delta, and encodes only its block of each leaf
+    (:func:`sharding.block` along the leaf's ``model`` dim; a replicated
+    leaf whole), with the same key on every model rank, as the
+    reference's ``shard_map`` does; its pipeline rows are that block's.
+    The payloads go through one ``all_gather`` over the client axes and
+    ``model`` (client-major), every rank decodes every (client, block)
+    and rebuilds the leaf; a replicated leaf is model rank 0's on every
+    rank.  The identity pipeline all-reduces the rank's block over the
+    client axes and rebuilds the leaf through an ``all_gather`` over
+    ``model`` under the hop ``model``."""
     axes = client_axes(mesh, client_axis)
     if not axes:
         raise not_ported(f"client_axis={client_axis!r} on a mesh without "
@@ -335,6 +400,13 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire"):
     for a in axes:
         C *= mesh.shape[a]
     idx = client_index(axes, mesh)
+    M = mesh.shape.get("model", 1)
+    m = mesh.axis_index("model") if M > 1 else 0
+    if M > 1 and specs is None:
+        raise ValueError("a model axis needs the leaves' specs")
+    dims = ({n: sharding.model_dim(sp) for n, sp in specs.items()}
+            if M > 1 else {})
+    wire_axes = tuple(axes) + ("model",) if M > 1 else axes
     stateful = pipe.stateful
     masked = has_mask_ctx(pipe)
 
@@ -343,8 +415,11 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire"):
         agg, st_out = {}, []
         for li, name in enumerate(list(deltas)):
             leaf = deltas.pop(name)
-            local_shape = leaf.shape[1:]          # the local client dim (1)
-            flat = leaf.reshape(-1).to(torch.float32)
+            dim = dims.get(name)
+            local = sharding.block(leaf, dim, m, M, lead=1)
+            local_shape = local.shape[1:]         # the local client dim (1)
+            flat = local.reshape(-1).to(torch.float32)
+            del local
             n = flat.shape[0]
             r = rng.fold_in(li).fold_in(idx)
             if pipe.is_identity:
@@ -352,7 +427,10 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire"):
                 # the wire, f32 is the faithful baseline
                 contrib = (weights[idx] * flat).to(leaf.dtype)
                 tot = all_reduce_sum(contrib, mesh, axes, hop)
-                out = tot.to(torch.float32) / wsum
+                out = (tot.to(torch.float32) / wsum).reshape(local_shape)
+                if M > 1:
+                    out = sharding.unblock(all_gather(
+                        out.to(leaf.dtype), mesh, ("model",), "model"), dim)
             else:
                 st = (index_state(comm_state[li], 0) if stateful
                       else pipe.init((n,), device=flat.device))
@@ -360,15 +438,22 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire"):
                     mkey = rng.fold_in(MASK_TAG).fold_in(li)
                     st = inject_mask_ctx(st, mkey, idx, C)
                 payload, new_st = pipe.encode(st, r, flat)
-                rows = gather_payload(pipe, payload, mesh, axes, hop)
+                rows = gather_payload(pipe, payload, mesh, wire_axes, hop,
+                                      per=M)
                 del payload, flat
-                dec = torch.stack([pipe.decode(p, n) for p in rows])
+                blocks = []
+                for b in range(M if dim is not None else 1):
+                    dec = torch.stack([pipe.decode(p, n)
+                                       for p in rows[b::M]])
+                    blocks.append(((weights[:, None] * dec).sum(0) / wsum)
+                                  .reshape(local_shape))
+                    del dec
                 del rows
-                out = (weights[:, None] * dec).sum(0) / wsum
-                del dec
+                out = sharding.unblock(blocks, dim)
+                del blocks
                 if stateful:
                     st_out.append(lead_state(new_st, 1))
-            agg[name] = out.reshape(local_shape).to(leaf.dtype)
+            agg[name] = out.reshape(leaf.shape[1:]).to(leaf.dtype)
             del leaf, out
         return agg, (tuple(st_out) if stateful else None)
 

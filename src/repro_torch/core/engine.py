@@ -82,6 +82,7 @@ from repro_torch.core.rng import PRNGKey
 from repro_torch.core.types import CommLedger, FLConfig, FLState
 from repro_torch.data.pipeline import capability_latency
 from repro_torch.device import not_ported, resolve_device
+from repro_torch.models import sharding
 from repro_torch.models.layers import scalar_like
 from repro_torch.models.model import Model
 from repro_torch.obs import telemetry as obs_tel
@@ -684,13 +685,16 @@ class _StarWire:
     """The star's own hops' transport (:func:`_build_star`): this rank's
     client index of C, the collective aggregator, the dense one for
     SCAFFOLD's controls, the gather of a (1,) per-client value into the
-    (C,) one every rank sees, and the gather of (1,)-led pipeline rows
-    into the (C,)-led rows (a population's ``store`` hop)."""
+    (C,) one every rank sees, the gather of this rank's (1,)-led
+    pipeline rows into the (C,)-led whole rows (a population's ``store``
+    hop), and this rank's block of a (1,)-led whole row (the identity
+    without a model axis)."""
     idx: int
     aggregate: Callable            # (deltas, weights, rng, comm) -> agg, comm
     aggregate_dense: Optional[Callable]   # (tree, weights, rng) -> agg
     gather: Callable               # (1,) -> (C,)
     gather_rows: Callable          # (1,)-led rows -> (C,)-led rows
+    block_rows: Callable           # (1,)-led whole rows -> this rank's
 
 
 def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
@@ -897,8 +901,8 @@ def _build_server_program(fl: FLConfig, terms: dict, dispatch: Dispatch,
         weights, ids = ctx["weights"], ctx["ids"]
         rows_in, st = store.gather(ctx["state"].comm_state, ids)
         agg, row = star.aggregate(
-            ctx.pop("deltas"), weights, ctx["r_up"],
-            _index_state(rows_in, slice(star.idx, star.idx + 1)))
+            ctx.pop("deltas"), weights, ctx["r_up"], star.block_rows(
+                _index_state(rows_in, slice(star.idx, star.idx + 1))))
         ctx.update(agg=agg, new_comm=store.scatter(st, ids,
                                                    star.gather_rows(row)),
                    n_sel=(weights > 0).sum().to(torch.float32))
@@ -1103,9 +1107,32 @@ def _f32(v, device) -> torch.Tensor:
 
 
 def _gather_cat(mesh, axes):
-    """(1,) per rank -> the (C,) tensor of the ranks along ``axes``."""
+    """(1,) per rank -> the (C,) tensor of the ranks along ``axes``; on a
+    model axis, model rank 0's value of each client."""
+    M = mesh.shape.get("model", 1)
+    if M > 1:
+        return lambda v: torch.cat(aggregation.all_gather(
+            v.reshape(1), mesh, tuple(axes) + ("model",), "metrics")[::M])
     return lambda v: torch.cat(aggregation.all_gather(
         v.reshape(1), mesh, axes, "metrics"))
+
+
+def _model_blocks(model: Model, mesh):
+    """The star's model axis: ``({leaf: spec}, {leaf: its model dim or
+    None}, {leaf: this rank's block shape})`` by
+    ``repro_torch.models.sharding`` (specs None without a model axis)."""
+    M = mesh.shape.get("model", 1)
+    shapes = {n: tuple(d.shape) for n, d in model.defs.items()}
+    if M == 1:
+        return None, {n: None for n in shapes}, shapes
+    specs = sharding.tree_specs(shapes, model.logical_axes(), mesh,
+                                model.cfg.fsdp)
+    if any(a not in (None, "model") for sp in specs.values() for a in sp):
+        raise not_ported("FSDP weight sharding over the data axis",
+                         "repro.models.sharding")
+    dims = {n: sharding.model_dim(sp) for n, sp in specs.items()}
+    return specs, dims, {n: sharding.block_shape(s, dims[n], M)
+                         for n, s in shapes.items()}
 
 
 def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
@@ -1125,7 +1152,17 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
     gathers the whole cohort's rows, advances its own through the
     collective wire and scatters the C advanced rows, which cross under
     the ``store`` hop, so the replicas stay bit-identical.  SCAFFOLD and
-    a cohort other than C raise the reference's ``ValueError``."""
+    a cohort other than C raise the reference's ``ValueError``.
+
+    On a model axis of M ranks (``repro_torch.models.sharding``'s specs)
+    each of a client's M ranks runs the client's whole local update from
+    the same batch slice and encodes its block of every leaf
+    (:func:`aggregation.make_aggregator`); its pipeline rows hold that
+    block (a replicated leaf whole), and every rank ends the round with
+    the whole params.  A population's store stays whole on every rank:
+    the rank's slot row is cut to its blocks, and the ``store`` hop
+    gathers every rank's advanced blocks over the client axes and
+    ``model``."""
     client_axis = topo.client_axis or model.cfg.client_axis
     if client_axis == "pod":
         raise not_ported("pod-level clients (client_axis='pod', the FSDP "
@@ -1136,6 +1173,11 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
         C *= mesh.shape[a]
     idx = aggregation.client_index(axes, mesh)
     terms, up, down = ledger_terms(model, fl)
+    specs, dims, bshapes = _model_blocks(model, mesh)
+    M = mesh.shape.get("model", 1)
+    m = mesh.axis_index("model") if M > 1 else 0
+    if specs is not None and up.stateful:
+        aggregation.check_model_axis_state(up, bshapes.values())
     scaffold = fl.algorithm == "scaffold"
     scenario = _fl_scenario(fl)
     population = _attach_scenario(population, scenario)
@@ -1156,15 +1198,38 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
     dispatch = make_dispatch(model, fl, up, down, 1, chunk,
                              scenario=scenario)
     dense = (aggregation.make_aggregator(mesh, Identity(), client_axis,
-                                         hop="dense") if scaffold else None)
+                                         hop="dense", specs=specs)
+             if scaffold else None)
+    names = list(bshapes)
+
+    def block_rows(rows):
+        # a leaf-shaped state tensor of leaf li -> this rank's block
+        def cut(t, li):
+            if isinstance(t, torch.Tensor):
+                n = names[li]
+                if tuple(t.shape[1:]) == tuple(model.defs[n].shape):
+                    return sharding.block(t, dims[n], m, M, lead=1)
+                return t
+            if isinstance(t, dict):
+                return {k: cut(v, li) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(cut(v, li) for v in t)
+            return t
+        return rows if M == 1 else tuple(cut(r, li)
+                                         for li, r in enumerate(rows))
+
     star = _StarWire(
         idx=idx,
-        aggregate=aggregation.make_aggregator(mesh, up, client_axis),
+        aggregate=aggregation.make_aggregator(mesh, up, client_axis,
+                                              specs=specs),
         aggregate_dense=(lambda t, w, r: dense(t, w, r, None)[0])
         if scaffold else None,
         gather=_gather_cat(mesh, axes),
-        gather_rows=lambda rows: aggregation.all_gather_rows(
-            rows, mesh, axes, "store"))
+        gather_rows=lambda rows: tuple(
+            aggregation.all_gather_rows(r, mesh, axes, "store", dims[n],
+                                        bshapes[n])
+            for r, n in zip(rows, names)),
+        block_rows=block_rows)
     tele = _telemetry_spec(fl, up, down, model.param_sizes())
     if tele is not None:
         aux["telemetry"] = tele
@@ -1184,7 +1249,7 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
             control=zeros() if scaffold else None,
             client_controls=zeros((1,)) if scaffold else None,
             comm_state=(store.init() if store is not None
-                        else comm_state_init(up, params, 1, device)
+                        else comm_state_init(up, bshapes, 1, device)
                         if up.stateful else None),
             rng=PRNGKey(fl.seed), round=0)
 
@@ -1648,6 +1713,9 @@ def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
     if kind in ("star", "hier", "gossip"):
         if mesh is None:
             raise ValueError(f"{kind} topology needs a mesh")
+        if kind != "star" and mesh.shape.get("model", 1) > 1:
+            raise not_ported(f"the {kind} topology on a model axis",
+                             "repro.models.sharding")
         dev = mesh.device if device is None else resolve_device(device)
         if kind == "star":
             engine = _build_star(model, fl, topology, mesh, chunk, dev,

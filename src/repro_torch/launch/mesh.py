@@ -2,15 +2,17 @@
 ``repro.launch.mesh``).
 
 The reference lays FL clients on the axes of a device mesh and runs the
-round inside ``shard_map``.  The port makes each client one process (a
-*rank*) of a ``torch.distributed`` group and keeps the reference's axis
-names: ``pod`` and ``data``, with the model axis fixed at 1 (model-axis
-parallelism is ``repro.models.sharding``, not ported).  Ranks map to
-coordinates pod-major and data-minor, ``rank = pod * data_size + data``:
+round inside ``shard_map``.  The port makes each (client, model block)
+one process (a *rank*) of a ``torch.distributed`` group and keeps the
+reference's axis names: ``pod``, ``data`` and ``model``.  Ranks map to
+coordinates pod-major, then data, with model minor, ``rank = (pod *
+data_size + data) * model_size + model``: the reference's device order,
 the order ``aggregation.client_index`` assumes and the order an
-``all_gather`` over the client axes returns.  One sub-group is made per
-axis slice: each pod's data ranks (the edge hop of the hierarchy) and each
-data index's pod ranks (the cloud hop).
+``all_gather`` over the client axes (and ``model``) returns.  One
+sub-group is made per axis slice: each pod's data ranks (the edge hop of
+the hierarchy), each data index's pod ranks (the cloud hop), and on a
+model axis each client's model ranks and the client axes together with
+``model`` (the star's wire, ``repro_torch.models.sharding``).
 
 :func:`init_ranks` joins the process group.  The caller always names the
 backend: ``nccl`` puts rank r on ``cuda:r`` (one card per rank), ``gloo``
@@ -34,7 +36,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch.device import not_ported, resolve_device
+from repro_torch.device import resolve_device
 
 BACKENDS = ("nccl", "gloo")
 DEFAULT_TIMEOUT_S = 600.0
@@ -105,7 +107,7 @@ class Mesh:
         return tuple(self.shape)
 
     def coords(self, rank: int = None) -> dict:
-        """A rank's coordinate on each axis, pod-major and data-minor."""
+        """A rank's coordinate on each axis, pod-major and model-minor."""
         r = self.rank if rank is None else rank
         out = {}
         for name in reversed(self.axis_names):
@@ -149,20 +151,20 @@ def make_mesh(shape: dict, device: torch.device, axes_sets=None) -> Mesh:
     group, whose world size must equal the product of the sizes.  Every
     rank makes every sub-group, in one order (``dist.new_group`` is
     collective): for each subset in ``axes_sets`` (default: ``("data",)``,
-    ``("pod",)`` and ``("pod", "data")``, those present), one group per
-    slice."""
+    ``("pod",)`` and ``("pod", "data")``, those present, and with a model
+    axis above 1 also ``("model",)`` and the client axes with ``model``),
+    one group per slice."""
     shape = {k: int(v) for k, v in shape.items()}
-    if shape.get("model", 1) != 1:
-        raise not_ported("a model axis larger than 1 (--model-parallel)",
-                         "repro.models.sharding")
     world = dist.get_world_size()
     if _prod(shape.values()) != world:
         raise ValueError(f"mesh {shape} needs {_prod(shape.values())} ranks; "
                          f"the process group has {world}")
     rank = dist.get_rank()
     if axes_sets is None:
-        axes_sets = [a for a in (("data",), ("pod",), ("pod", "data"))
-                     if all(x in shape for x in a)]
+        sets = [("data",), ("pod",), ("pod", "data")]
+        if shape.get("model", 1) > 1:
+            sets += [("model",), ("data", "model"), ("pod", "data", "model")]
+        axes_sets = [a for a in sets if all(x in shape for x in a)]
     groups = {}
     for axes in axes_sets:
         for ranks in _slices(shape, tuple(axes)):

@@ -100,8 +100,11 @@ write its own ``torch.profiler`` trace (``rank<r>.*``) into DIR, and
 
 One card cannot hold two NCCL ranks of one communicator, so on one card
 several ranks share it over gloo (staging each collective through the
-host) and NCCL runs at one rank.  ``--model-parallel`` above 1 (the model
-axis) is not ported.  ``--population`` stays on the single-process path,
+host) and NCCL runs at one rank.  ``--model-parallel M`` puts the star on
+the reference's ``make_host_mesh(model=min(M, N))``: N / M clients, each
+trained whole by its M model ranks, every rank encoding its block of
+each leaf (``repro_torch.models.sharding``); ``--hierarchical`` on a
+model axis is not ported.  ``--population`` stays on the single-process path,
 as in the reference; a population on the star is built through
 ``make_round_engine(..., Topology.star(), mesh=, population=)``.
 
@@ -208,7 +211,10 @@ def _parse(argv=None):
     ap.add_argument("--sync-every", type=int, default=4,
                     help="hierarchical: the cloud hop's period in rounds")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the model axis' size (only 1 is ported)")
+                    help="with --nproc N: the model axis' size M (the "
+                         "star only): N / M clients, each trained by its "
+                         "M model ranks, each encoding its block of every "
+                         "leaf")
     ap.add_argument("--seq", type=int, default=48)
     ap.add_argument("--batch-per-client", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -363,9 +369,9 @@ def _spawn(args, argv):
     not survive fork) and wait for them; rank 0 prints."""
     from repro_torch.device import not_ported, resolve_device
     from repro_torch.launch.mesh import run_ranks
-    if args.model_parallel > 1:
-        raise not_ported("--model-parallel > 1 (the model axis)",
-                         "repro.models.sharding")
+    if args.hierarchical and args.model_parallel > 1:
+        raise not_ported("--hierarchical on a model axis "
+                         "(--model-parallel > 1)", "repro.models.sharding")
     if args.nproc < 1:
         raise ValueError("--hierarchical runs on a mesh of ranks: give "
                          "--nproc N")
@@ -415,7 +421,8 @@ def _rank_main(rank, nproc, init_method, args):
     from repro_torch.core.types import FLConfig
     from repro_torch.data.synthetic import (FedDataConfig, eval_batch,
                                             sample_round)
-    from repro_torch.launch.mesh import init_ranks, make_mesh, rank_device
+    from repro_torch.launch.mesh import init_ranks, make_host_mesh, \
+        make_mesh, rank_device
     from repro_torch.models.model import Model
     from repro_torch.obs.trace import Tracer, profiler
 
@@ -453,7 +460,8 @@ def _rank_main(rank, nproc, init_method, args):
             mesh = make_mesh({"pod": G, "data": nproc // G, "model": 1}, dev)
             topo = Topology.hier(args.sync_every)
         else:
-            mesh = make_mesh({"data": nproc, "model": 1}, dev)
+            mesh = make_host_mesh(model=min(args.model_parallel, nproc),
+                                  device=dev)
             topo = Topology.star()
         engine = make_round_engine(model, fl, topo, chunk=args.seq,
                                    mesh=mesh)
@@ -473,7 +481,8 @@ def _rank_main(rank, nproc, init_method, args):
                   + (f" pod={fl.pod_compressor} sync_every="
                      f"{args.sync_every}" if args.hierarchical else ""),
                   flush=True)
-        data = FedDataConfig(vocab_size=cfg.vocab_size, num_clients=nproc,
+        data = FedDataConfig(vocab_size=cfg.vocab_size,
+                             num_clients=engine.n_clients,
                              seq_len=args.seq,
                              batch_per_client=args.batch_per_client,
                              heterogeneity=1.5, seed=args.seed)

@@ -28,6 +28,7 @@ from repro_torch.core.types import ArchConfig
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
+    logical: tuple = ()       # the reference's logical axis name per dim
     init: str = "normal"      # normal | zeros | ones | small | alog
     scale: float = 0.02
 
@@ -68,16 +69,16 @@ def rope(x, positions, theta):
 def attn_defs(cfg: ArchConfig, cross: bool = False):
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     d = {
-        "wq": ParamDef((D, H * hd)),
-        "wk": ParamDef((D, KV * hd)),
-        "wv": ParamDef((D, KV * hd)),
-        "wo": ParamDef((H * hd, D)),
-        "ln": ParamDef((D,), "ones"),
+        "wq": ParamDef((D, H * hd), ("embed", "heads")),
+        "wk": ParamDef((D, KV * hd), ("embed", "kv_heads")),
+        "wv": ParamDef((D, KV * hd), ("embed", "kv_heads")),
+        "wo": ParamDef((H * hd, D), ("heads", "embed")),
+        "ln": ParamDef((D,), ("norm",), "ones"),
     }
     if cfg.qkv_bias and not cross:
-        d["bq"] = ParamDef((H * hd,), "zeros")
-        d["bk"] = ParamDef((KV * hd,), "zeros")
-        d["bv"] = ParamDef((KV * hd,), "zeros")
+        d["bq"] = ParamDef((H * hd,), ("heads",), "zeros")
+        d["bk"] = ParamDef((KV * hd,), ("kv_heads",), "zeros")
+        d["bv"] = ParamDef((KV * hd,), ("kv_heads",), "zeros")
     return d
 
 
@@ -413,11 +414,11 @@ def encode_cross_kv(p, enc_out, cfg: ArchConfig):
 
 def mlp_defs(cfg: ArchConfig, gated=True):
     D, F_ = cfg.d_model, cfg.d_ff
-    d = {"ln": ParamDef((D,), "ones"),
-         "w_up": ParamDef((D, F_)),
-         "w_down": ParamDef((F_, D))}
+    d = {"ln": ParamDef((D,), ("norm",), "ones"),
+         "w_up": ParamDef((D, F_), ("embed", "ffn")),
+         "w_down": ParamDef((F_, D), ("ffn", "embed"))}
     if gated:
-        d["w_gate"] = ParamDef((D, F_))
+        d["w_gate"] = ParamDef((D, F_), ("embed", "ffn"))
     return d
 
 
@@ -438,11 +439,13 @@ def mlp_block(p, x, cfg: ArchConfig):
 def moe_defs(cfg: ArchConfig):
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "ln": ParamDef((D,), "ones"),
-        "router": ParamDef((D, E)),
-        "w_gate": ParamDef((E, D, F_)),
-        "w_up": ParamDef((E, D, F_)),
-        "w_down": ParamDef((E, F_, D)),
+        "ln": ParamDef((D,), ("norm",), "ones"),
+        "router": ParamDef((D, E), ("embed", None)),
+        "w_gate": ParamDef((E, D, F_),
+                            ("experts", "embed", "ffn")),
+        "w_up": ParamDef((E, D, F_), ("experts", "embed", "ffn")),
+        "w_down": ParamDef((E, F_, D),
+                            ("experts", "ffn", "embed")),
     }
 
 

@@ -97,7 +97,8 @@ def _block_defs(cfg: ArchConfig, entry: str) -> dict:
 
 def _stack_defs(tree: dict, n: int) -> dict:
     return {k: _stack_defs(v, n) if isinstance(v, dict)
-            else ParamDef((n,) + v.shape, v.init, v.scale)
+            else ParamDef((n,) + v.shape, ("stack",) + v.logical, v.init,
+                         v.scale)
             for k, v in tree.items()}
 
 
@@ -106,19 +107,20 @@ def param_defs(cfg: ArchConfig) -> dict:
     D, V = cfg.d_model, cfg.vocab_size
     sb = {f"b{i}": _block_defs(cfg, e)
           for i, e in enumerate(cfg.block_pattern)}
-    tree = {"embed": ParamDef((V, D)), "final_ln": ParamDef((D,), "ones"),
+    tree = {"embed": ParamDef((V, D), ("vocab", "embed")),
+            "final_ln": ParamDef((D,), ("norm",), "ones"),
             "layers": _stack_defs(sb, cfg.num_superblocks)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ParamDef((D, V))
+        tree["lm_head"] = ParamDef((D, V), ("embed", "vocab"))
     if cfg.encoder_layers:
         enc_block = {"mixer": L.attn_defs(cfg),
                      "ffn": L.mlp_defs(cfg, gated=False)}
         tree["encoder"] = {
             "layers": _stack_defs(enc_block, cfg.encoder_layers),
-            "final_ln": ParamDef((D,), "ones")}
+            "final_ln": ParamDef((D,), ("norm",), "ones")}
     if cfg.num_patches:
         # the projector of the (stubbed) vision embeddings
-        tree["patch_proj"] = ParamDef((D, D))
+        tree["patch_proj"] = ParamDef((D, D), ("embed", "embed"))
     return dict(_flatten(tree))
 
 
@@ -451,6 +453,11 @@ class Model:
         return init_cache(self.cfg, batch, cache_len, enc_len,
                           quantized=quantized,
                           device=resolve_device(device))
+
+    def logical_axes(self) -> dict:
+        """``{leaf name: its logical axis names}`` in leaf order (the
+        reference's ``logical_axes`` tree, flattened)."""
+        return {n: d.logical for n, d in self.defs.items()}
 
     def param_sizes(self) -> list:
         """Flat per-leaf parameter counts, in leaf order."""

@@ -32,15 +32,16 @@ def mamba_defs(cfg: ArchConfig):
     D = cfg.d_model
     d_inner, H, P, N, G, conv_dim, d_in_proj = ssm_dims(cfg)
     return {
-        "ln": ParamDef((D,), "ones"),
-        "in_proj": ParamDef((D, d_in_proj)),
-        "conv_w": ParamDef((cfg.ssm_conv_width, conv_dim)),
-        "conv_b": ParamDef((conv_dim,), "zeros"),
-        "A_log": ParamDef((H,), "alog"),
-        "D": ParamDef((H,), "ones"),
-        "dt_bias": ParamDef((H,), "zeros"),
-        "norm": ParamDef((d_inner,), "ones"),
-        "out_proj": ParamDef((d_inner, D)),
+        "ln": ParamDef((D,), ("norm",), "ones"),
+        "in_proj": ParamDef((D, d_in_proj), ("embed", "ssm_inner")),
+        "conv_w": ParamDef((cfg.ssm_conv_width, conv_dim),
+                           ("conv", "ssm_inner")),
+        "conv_b": ParamDef((conv_dim,), ("ssm_inner",), "zeros"),
+        "A_log": ParamDef((H,), ("ssm_heads",), "alog"),
+        "D": ParamDef((H,), ("ssm_heads",), "ones"),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), "zeros"),
+        "norm": ParamDef((d_inner,), ("norm",), "ones"),
+        "out_proj": ParamDef((d_inner, D), ("ssm_inner", "embed")),
     }
 
 

@@ -22,7 +22,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.optim.sgd, repro_torch.optim.adamw\n"
         "import repro_torch.core.aggregation, repro_torch.core.federated\n"
         "import repro_torch.core.hierarchical, repro_torch.core.gossip\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.models.sharding\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
@@ -66,9 +66,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 def test_unported_knobs_raise_naming_the_reference_module():
     """The star (with or without a population), hier and gossip topologies
-    are ported (their guards are in test_torch_topology.py and
-    test_torch_mesh_population.py); what stays out raises naming its
-    module: pod-level clients, a model axis above 1."""
+    are ported, and so is the star on a model axis (their guards are in
+    test_torch_topology.py, test_torch_mesh_population.py and
+    test_torch_model_axis.py); what stays out raises naming its module:
+    pod-level clients, and hier and gossip on a model axis above 1 (the
+    engine and the CLI's --hierarchical)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import Topology, make_round_engine
     from repro_torch.core.population import ClientPopulation
@@ -82,17 +84,20 @@ def test_unported_knobs_raise_naming_the_reference_module():
                    device=torch.device("cpu"), backend="gloo", groups={})
     pods = M.Mesh(shape={"pod": 2, "data": 2, "model": 1}, rank=0,
                   device=torch.device("cpu"), backend="gloo", groups={})
+    model2 = M.Mesh(shape={"pod": 2, "data": 1, "model": 2}, rank=0,
+                    device=torch.device("cpu"), backend="gloo", groups={})
     pop = ClientPopulation(n_clients=100, cohort=4)
     assert make_round_engine(model, fl, Topology.star(), mesh=data4,
                              population=pop).aux["population"] == pop
     for call, module in (
             (lambda: make_round_engine(model, fl, Topology.star("pod"),
                                        mesh=pods), "repro.models.sharding"),
-            (lambda: M.make_mesh({"data": 2, "model": 2},
-                                 torch.device("cpu")),
-             "repro.models.sharding"),
+            (lambda: make_round_engine(model, fl, Topology.hier(2),
+                                       mesh=model2), "repro.models.sharding"),
+            (lambda: make_round_engine(model, fl, Topology.gossip(),
+                                       mesh=model2), "repro.models.sharding"),
             (lambda: train.main(["--nproc", "2", "--device", "cpu",
-                                 "--dist-backend", "gloo",
+                                 "--dist-backend", "gloo", "--hierarchical",
                                  "--model-parallel", "2"]),
              "repro.models.sharding")):
         with pytest.raises(NotImplementedError, match=module):

@@ -370,7 +370,8 @@ def test_telemetry_on_equals_off(runs):
 def test_guards_and_not_ported_messages():
     """The reference's hier and gossip guards (population, scenario,
     SCAFFOLD, DGC), a mesh-less mesh topology, and the knobs the port does
-    not run: pod-level clients, a model axis.  A population on the star
+    not run: pod-level clients, --hierarchical on a model axis.  A
+    population on the star
     builds (its guards and rounds are in
     test_torch_mesh_population.py)."""
     from repro_torch.configs.registry import get_arch
@@ -411,7 +412,7 @@ def test_guards_and_not_ported_messages():
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="repro.models.sharding"):
         train.main(["--nproc", "2", "--device", "cpu", "--dist-backend",
-                    "gloo", "--model-parallel", "2"])
+                    "gloo", "--hierarchical", "--model-parallel", "2"])
     with pytest.raises(ValueError, match="give --nproc"):
         train.main(["--hierarchical", "--device", "cpu"])
 
