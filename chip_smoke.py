@@ -243,14 +243,16 @@ line is printed):
      them to this process.  15: the star on paper_lm (phase 4's batch),
      3 rounds on each backend of the identity FedSGD wire, EF
      ``topk:0.05>>qsgd:4@fused``, ``ternary@fused``, SCAFFOLD on
-     ``qsgd:8`` and the EF chain ``>>secagg``: every rank's wire operands
+     ``qsgd:8``, ``uveq:4``, ``randmask`` (their keys crossing as 8-byte
+     planes) and the EF chain ``>>secagg``: every rank's wire operands
      its payload (``payload_nbytes``), the ranks' sum the ledger's
      uplink (in its own float32 arithmetic; SCAFFOLD's billed twice,
-     its dense control f32 beside it), the packed wire uint8 with no int8
-     or f32 code plane, the staged QSGD wire int8, only the identity wire
-     an f32 all-reduce; the backends bit-identical (the ternary chain at
-     engine scope: its kernel sums mu in another order) and the masked
-     chain equal to the clear one;
+     its dense control f32 beside it; UVeQ's payload 4 bytes a leaf
+     above it, its 64-bit key plane against the billed 32-bit seed), the
+     packed wire uint8 with no int8 or f32 code plane, the staged QSGD
+     wire int8, only the identity wire an f32 all-reduce; the backends
+     bit-identical (the ternary chain at engine scope: its kernel sums mu
+     in another order) and the masked chain equal to the clear one;
   15b. llama3_2_1b uncut, 2 ranks sharing the card over gloo, one client
      each, 2 rounds of EF ``topk:0.05>>qsgd:4@fused`` through the
      kernels: each rank's peak memory, round times, the share of each
@@ -287,7 +289,8 @@ line is printed):
      leaf), 3 rounds on each backend of the identity FedSGD wire, EF
      ``topk:0.05>>qsgd:8``, EF ``topk:0.05>>qsgd:4@fused``,
      ``ternary@fused``, SCAFFOLD on ``qsgd:8``, the fused chain
-     ``>>secagg`` and a population of 6 clients, cohort 2, 4 slots under
+     ``>>secagg``, ``uveq:4``, ``randmask`` and a population of 6
+     clients, cohort 2, 4 slots under
      ``drop``: params (and the store replicas) bit-equal on all 4 ranks
      after every round, each rank's wire operand its blocks' payload, the
      ``model`` rebuild hop and SCAFFOLD's ``dense`` hop its f32 blocks,
@@ -300,10 +303,29 @@ line is printed):
      through the kernels: each rank's peak memory, round times,
      collective share and bytes by hop, params bit-equal on both ranks
      every round;
+  15j. 8 ranks sharing the card over gloo, paper_lm on a model axis of 2
+     (``repro_torch.models.sharding``; every model rank trains its
+     client's whole update and encodes its block of every leaf): hier at
+     pod 2 x data 2 x model 2, 2 rounds (the cloud hop on the second,
+     ``qsgd8``) of EF ``topk:0.05>>qsgd:8``, EF
+     ``topk:0.05>>qsgd:4@fused``, ``uveq:4``, ``randmask`` and DGC with
+     a warm-up round; gossip at data 4 x model 2, 2 rounds from per-node
+     perturbed params, on the ring (EF ``topk:0.25>>qsgd:8``,
+     ``randmask``) and ``expander_graph(4)`` (``uveq:4``);
+     params bit-equal on a pod's (a node's) ranks every round and on all
+     8 after a cloud round, each rank's operands by hop its blocks'
+     planes (a key's 8 bytes included), the ranks' sums printed against
+     the ledger's terms with the gap, the backends bit-identical;
+  15k. llama3_2_1b uncut (``LLAMA_HIER_LAYERS``) as 4 ranks sharing the
+     card over gloo, hier at pod 2 x data 1 x model 2, 2 rounds of EF
+     ``topk:0.05>>qsgd:4@fused`` through the kernels with the ``qsgd8``
+     cloud hop on the second: each rank's peak memory, round times, the
+     collectives' share and bytes by hop, params bit-equal within each
+     pod every round and on all 4 ranks after the cloud round;
   16. the ``kernels`` JSON line: launch counts are those of the main-path
      phases (4, 4b, 4c, 4d, 5, 5b, 5c, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 10,
      10b, 11, 12, 12b, 13, 13b, 13c, 14, 14b, 14c, 15, 15b, 15c, 15d, 15f,
-     15g, 15h, 15i),
+     15g, 15h, 15i, 15j, 15k),
      each counted from 0 just before its phase (the count sketch's by
      path too, each of which must launch); the pack and unpack kernels are
      on no path and count their phase-3 calls;
@@ -540,7 +562,12 @@ STAR_CHAINS = (
     ("SCAFFOLD qsgd:8", dict(algorithm="scaffold",
                              uplink_compressor="qsgd:8"),
      ("qsgd_quantize",)),
+    ("UVeQ uveq:4", dict(uplink_compressor="uveq:4"), ()),
+    ("RandMask randmask", dict(uplink_compressor="randmask"), ()),
 )
+# the bytes a UVeQ payload carries above the ledger's bits, a leaf: its
+# key crosses as an 8-byte plane, the ledger bills a 32-bit seed
+UVEQ_KEY_GAP = 4
 STAR_MASKED = ("EF topk:0.05>>qsgd:4@fused>>secagg",
                dict(uplink_compressor="topk:0.05>>qsgd:4@fused>>secagg"),
                ("threshold_sparsify", "qsgd_quantize", "qsgd_pack"))
@@ -604,12 +631,47 @@ MODEL_AXIS_CHAINS = (
     ("EF topk:0.05>>qsgd:4@fused>>secagg",
      dict(uplink_compressor=CHAINS[1] + ">>secagg"), _FUSED,
      ("threshold_sparsify", "qsgd_pack")),
+    ("UVeQ uveq:4", dict(uplink_compressor="uveq:4"), (), ()),
+    ("RandMask randmask", dict(uplink_compressor="randmask"), (), ()),
 )
 MODEL_AXIS_POP = ("drop 6/2/4", dict(n_clients=6, cohort=2, capacity=4,
                                      eviction="drop"),
                   dict(uplink_compressor=CHAINS[0]),
                   ("threshold_sparsify", "qsgd_quantize"),
                   ("threshold_sparsify", "qsgd_quantize"))
+# phase 15j: hier and gossip on a model axis of 2, 8 ranks on the card
+# over gloo; (label, FLConfig knobs, kernels the kernel backend may
+# launch, kernels it must launch: the cloud hop's qsgd8 quantizes every
+# block)
+MESH_M_RANKS, MESH_M_ROUNDS = 8, 2
+MESH3 = {"pod": 2, "data": 2, "model": 2}
+MESH42 = {"data": 4, "model": 2}
+HIER_M_FL = dict(pod_compressor="qsgd8", sync_every=2)
+_Q8 = ("threshold_sparsify", "qsgd_quantize")
+HIER_M_RUNS = (
+    ("EF topk:0.05>>qsgd:8", dict(uplink_compressor=CHAINS[0]), _Q8, _Q8),
+    ("EF topk:0.05>>qsgd:4@fused", dict(uplink_compressor=CHAINS[1]),
+     _FUSED, _FUSED),
+    ("uveq:4", dict(uplink_compressor="uveq:4"), ("qsgd_quantize",),
+     ("qsgd_quantize",)),
+    ("randmask", dict(uplink_compressor="randmask"), ("qsgd_quantize",),
+     ("qsgd_quantize",)),
+    ("DGC topk 0.05 warm-up 1", dict(uplink_compressor="topk",
+                                     topk_fraction=0.05, dgc_momentum=0.9,
+                                     dgc_warmup_rounds=1), _Q8, _Q8),
+)
+# (graph, spec, may, must)
+GOSSIP_M_RUNS = (
+    ("ring", "topk:0.25>>qsgd:8", _Q8, _Q8),
+    ("ring", "randmask", (), ()),
+    ("expander", "uveq:4", (), ()),
+)
+# phase 15k: llama3_2_1b uncut (LLAMA_HIER_LAYERS None) as 4 ranks on the
+# card, hier at pod 2 x data 1 x model 2
+LLAMA_HIER_RANKS, LLAMA_HIER_LAYERS = 4, None
+LLAMA_HIER_MESH = {"pod": 2, "data": 1, "model": 2}
+LLAMA_HIER_FL = dict(uplink_compressor="topk:0.05>>qsgd:4@fused",
+                     pod_compressor="qsgd8", sync_every=2)
 # the CUDA entry points of kernels/csrc, as the profiler names them
 OUR_KERNELS = ("threshold_sparsify_vec4", "threshold_sparsify_scalar",
                "qsgd_quantize_rows", "qsgd_pack_rows", "ternarize_rows",
@@ -4055,18 +4117,22 @@ def wire_bytes(recs, hop):
 
 def payload_per_client(spec, model, dev, **kw):
     """One client's payload bytes over the model's leaves, from the plain
-    pipeline (its shapes are the kernel pipeline's)."""
+    pipeline (its shapes are the kernel pipeline's; a stage without its
+    own fraction, RandMask's, takes FLConfig's ``topk_fraction`` as the
+    engine's does)."""
     from repro_torch.compress.api import make_compressor
-    from repro_torch.compress.wire_format import payload_nbytes
-    up = make_compressor(spec, backend="jax", **kw)
-    return sum(payload_nbytes(up, n, device=dev) for n in model.param_sizes())
+    from repro_torch.core.types import FLConfig
+    kw.setdefault("fraction", FLConfig().topk_fraction)
+    return pipe_bytes(make_compressor(spec, backend="jax", **kw),
+                      model.param_sizes(), dev)
 
 
 def check_wire_dtypes(rank, recs, hop, spec, sizes, what):
     """The packed wire gathers uint8 and no int8 code plane, the staged
     QSGD wire int8, only the identity wire all-reduces float32; a float32
     operand of a compressed wire is side info (scales, mu: at most one per
-    2,048 coordinates), never a code plane."""
+    2,048 coordinates), never a code plane, but for RandMask's values,
+    its only plane besides its key (the indices are redrawn)."""
     rs = [r for rr in recs for r in rr if r.hop == hop]
     dts = {str(r.dtype).replace("torch.", "") for r in rs}
     ops = {r.op for r in rs}
@@ -4076,7 +4142,7 @@ def check_wire_dtypes(rank, recs, hop, spec, sizes, what):
         return dts
     limit = max(1, -(-max(sizes) // 2048))
     big = [r.nbytes // 4 for r in rs if r.dtype == torch.float32
-           and r.nbytes // 4 > limit]
+           and r.nbytes // 4 > limit and not spec.startswith("randmask")]
     if ops != {"all_gather"} or big:
         rank_fail(rank, f"{what}: wire ops {ops}, f32 planes {big}")
     packed = "@fused" in spec
@@ -4202,6 +4268,9 @@ def star_rank_phase(rank, model, mesh, dev, devices):
                                     f"{count} times")
             spec = fl.uplink_compressor
             per = payload_per_client(spec, model, dev)
+            # UVeQ's key plane is 32 bits above the ledger's seed a leaf
+            gap = UVEQ_KEY_GAP * len(sizes) if spec.startswith("uveq") \
+                else 0
             got = wire_bytes(recs, "wire")
             if got != [per] * TOPO_ROUNDS:
                 rank_fail(rank, f"15 {label}: wire bytes {got} != payload "
@@ -4210,10 +4279,11 @@ def star_rank_phase(rank, model, mesh, dev, devices):
             scale = 2 if kw.get("algorithm") == "scaffold" else 1
             led = [int(v) for v in ms["ledger"].uplink_wire.tolist()]
             if total != C * per * TOPO_ROUNDS or led != [
-                    ledger_bytes(C, scale * per)] * TOPO_ROUNDS:
+                    ledger_bytes(C, scale * (per - gap))] * TOPO_ROUNDS:
                 rank_fail(rank, f"15 {label}: the ranks' wire bytes {total} "
                                 f"over {TOPO_ROUNDS} rounds, x{scale} per "
-                                f"client {scale * per}, ledger {led}")
+                                f"client {scale * per} less the key planes' "
+                                f"{gap}, ledger {led}")
             dts = check_wire_dtypes(rank, recs, "wire", spec, sizes,
                                     f"15 {label}")
             if scale == 2:
@@ -4232,8 +4302,12 @@ def star_rank_phase(rank, model, mesh, dev, devices):
                 f"{', '.join(f'{t:.3f}' for t in times)} s (collectives "
                 f"{shares(coll, times)} of each), loss {fmt(losses)}, wire "
                 f"{per:,} B a rank a "
-                f"round in {sorted(dts)}, the ranks' sum {C} x that, x{scale} "
-                f"in f32 == ledger {led[0]:,} B, launches {ran}")
+                f"round in {sorted(dts)}, the ranks' sum {C} x that"
+                + (f" less {gap} B a client of key planes (UVeQ's 64-bit "
+                   f"key against the ledger's 32-bit seed, a leaf)"
+                   if gap else "")
+                + f", x{scale} in f32 == ledger {led[0]:,} B, launches "
+                f"{ran}")
         loose = "ternary" in label
         n = backend_pairs(runs, f"15 {label}", rank, skip_ctx=True,
                           loose=loose)
@@ -4569,7 +4643,8 @@ def cli_rank_phase(rank, model, mesh, dev, devices, out_dir):
 
     world = mesh.shape["data"]
     base = ["--nproc", str(world), "--dist-backend", "gloo", "--device",
-            dev.type, "--backend", "kernel", "--rounds", "2", "--seq",
+            dev.type, "--model-parallel", "1", "--backend", "kernel",
+            "--rounds", "2", "--seq",
             str(PAPER_LM_SEQ), "--batch-per-client", str(PAPER_LM_BATCH),
             "--local-steps", "1", "--compressor", CHAINS[1]]
     lines = []
@@ -4659,23 +4734,34 @@ def model_blocks(model, mesh):
 
 def block_payload(spec, sizes, dev):
     """One rank's payload bytes for blocks of ``sizes`` (the identity
-    wire: its f32 all-reduce operand), from the plain pipeline."""
+    wire: its f32 all-reduce operand), from the plain pipeline at
+    FLConfig's ``topk_fraction``."""
     from repro_torch.compress.api import make_compressor
-    from repro_torch.compress.wire_format import payload_nbytes
+    from repro_torch.core.types import FLConfig
     if spec == "none":
         return 4 * sum(sizes)
-    up = make_compressor(spec, backend="jax")
-    return sum(payload_nbytes(up, n, device=dev) for n in sizes)
+    return pipe_bytes(make_compressor(spec, backend="jax",
+                                      fraction=FLConfig().topk_fraction),
+                      sizes, dev)
 
 
-def model_axis_run(rank, eng, data_fn, rounds, what, pop=False):
-    """``rounds`` rounds of a star engine on a model axis, each
+def pipe_bytes(pipe, sizes, dev):
+    """One rank's payload bytes for blocks of ``sizes`` through ``pipe``
+    (its planes, a key's included)."""
+    from repro_torch.compress.wire_format import payload_nbytes
+    return sum(payload_nbytes(pipe, n, device=dev) for n in sizes)
+
+
+def grouped_run(rank, eng, state, data_fn, rounds, what, group_of,
+                cloud_rounds=(), pop=False):
+    """``rounds`` rounds of a mesh engine on a model axis, each
     synchronised and timed, with its collective records; after every
-    round a digest of the params (and of the store) is compared across
-    the ranks, every one of which must hold the same."""
+    round the params' digest (and the store's, ``pop``) is compared
+    across the ranks: equal within each ``group_of(rank)`` (a pod, a
+    gossip node; on the star every rank), and on every rank after the
+    rounds of ``cloud_rounds`` (hier's cloud hop)."""
     from repro_torch.core import aggregation
     from repro_torch.core.engine import stack_rows
-    state = eng.init_fn(0)
     before = launch_counts()
     ms, times, recs = [], [], []
     for r in range(rounds):
@@ -4688,14 +4774,25 @@ def model_axis_run(rank, eng, data_fn, rounds, what, pop=False):
         times.append(time.perf_counter() - t0)
         recs.append(list(aggregation.COLLECTIVES))
         ms.append(m)
-        mine = (store_digest(state.params),
-                store_digest(state.comm_state) if pop else "")
-        if any(o != mine for o in gather_object(mine)):
-            rank_fail(rank, f"15h {what}: params bit-equal on all ranks "
-                            f"failed after round {r} (or the store "
-                            f"replicas differ)")
+        digests = gather_object((store_digest(state.params),
+                                 store_digest(state.comm_state) if pop
+                                 else ""))
+        same = [o for o, d in enumerate(digests)
+                if r in cloud_rounds or group_of(o) == group_of(rank)]
+        if any(digests[o] != digests[rank] for o in same):
+            rank_fail(rank, f"{what}: params (or the store replicas) "
+                            f"differ from ranks {same}'s after round {r}")
     ran = {k: v - before[k] for k, v in launch_counts().items()}
     return state, stack_rows(ms), times, recs, ran
+
+
+def check_ran(rank, ran, backend, may, must, what):
+    """On the kernel backend the kernels of ``must`` launched and none
+    outside ``may``; on the plain backend none."""
+    for name, count in ran.items():
+        if (count > 0 and (backend != "kernel" or name not in may)) or (
+                count == 0 and backend == "kernel" and name in must):
+            rank_fail(rank, f"{what}: {name} launched {count} times")
 
 
 def model_axis_checks(rank, eng, ms, recs, ran, backend, may, must, per,
@@ -4706,12 +4803,7 @@ def model_axis_checks(rank, eng, ms, recs, ran, backend, may, must, per,
     the rebuild hop ``model`` (and SCAFFOLD's ``dense``) its f32 blocks,
     the ledger the selected clients' whole-leaf term in f32.  Returns the
     line's byte figures."""
-    for name, count in ran.items():
-        bad = (count > 0 and (backend != "kernel" or name not in may)) or (
-            count == 0 and backend == "kernel" and name in must)
-        if bad:
-            rank_fail(rank, f"15h {what}: launches: {name} launched "
-                            f"{count} times")
+    check_ran(rank, ran, backend, may, must, f"15h {what}")
     rounds = len(recs)
     got = wire_bytes(recs, "wire")
     if got != [per] * rounds:
@@ -4776,8 +4868,9 @@ def model_axis_phase(rank, model, mesh, dev, devices):
             eng = make_round_engine(model, fl, Topology.star(),
                                     chunk=PAPER_LM_SEQ, mesh=mesh)
             what = f"{label} {backend}"
-            st, ms, times, recs, ran = model_axis_run(
-                rank, eng, data_fn, MODEL_AXIS_ROUNDS, what)
+            st, ms, times, recs, ran = grouped_run(
+                rank, eng, eng.init_fn(0), data_fn, MODEL_AXIS_ROUNDS,
+                f"15h {what}", lambda r: 0)
             per = block_payload(fl.uplink_compressor, bsizes, dev)
             figures = model_axis_checks(rank, eng, ms, recs, ran, backend,
                                         may, must, per, f32_blocks, what)
@@ -4839,8 +4932,9 @@ def model_axis_phase(rank, model, mesh, dev, devices):
                                 chunk=PAPER_LM_SEQ, mesh=mesh,
                                 population=pop)
         what = f"population {label} {backend}"
-        st, ms, times, recs, ran = model_axis_run(
-            rank, eng, pdata, MODEL_AXIS_ROUNDS, what, pop=True)
+        st, ms, times, recs, ran = grouped_run(
+            rank, eng, eng.init_fn(0), pdata, MODEL_AXIS_ROUNDS,
+            f"15h {what}", lambda r: 0, pop=True)
         per = block_payload(fl.uplink_compressor, bsizes, dev)
         figures = model_axis_checks(rank, eng, ms, recs, ran, backend, may,
                                     must, per, f32_blocks, what)
@@ -4966,9 +5060,9 @@ def llama_model_axis(rank, world, model, fl, dev):
     data = fed_data(model, 1, LLAMA_SEQ, LLAMA_BATCH)
     torch.cuda.reset_peak_memory_stats(dev)
     build.LAUNCHES.clear()
-    state, ms, times, recs, ran = model_axis_run(
-        rank, eng, lambda r: sample_round(data, r, dev), LLAMA_ROUNDS,
-        "15i llama3_2_1b")
+    state, ms, times, recs, ran = grouped_run(
+        rank, eng, eng.init_fn(0), lambda r: sample_round(data, r, dev),
+        LLAMA_ROUNDS, "15i llama3_2_1b", lambda r: 0)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     for name, count in ran.items():
         if (count > 0 and name not in _FUSED) or (
@@ -5038,13 +5132,339 @@ def llama_star_phase(dev):
                                   for r in reps) for k in KERNELS})
 
 
+# ---------------------------------------------------------------------------
+# phases 15j and 15k: hier and gossip on a model axis
+# ---------------------------------------------------------------------------
+
+def hop_line(recs, times, hops):
+    """Each hop's bytes a round and its share of each round."""
+    return "; ".join(
+        f"{h} {wire_bytes(recs, h)[0]:,} B ("
+        + shares([sum(r.seconds for r in rr if r.hop == h) for rr in recs],
+                 times) + ")" for h in hops)
+
+
+def hier_model_axis(rank, model, mesh, dev):
+    """15j's hier at pod 2 x data 2 x model 2: HIER_M_RUNS on both
+    backends, MESH_M_ROUNDS rounds with the cloud hop on the second:
+    params bit-equal on a pod's 4 ranks every round and on all 8 after
+    the cloud round, each rank's edge operand its blocks' payload and its
+    cloud operand the pod compressor's payload of its blocks, the ranks'
+    sums printed against the ledger's terms, the backends bit-identical."""
+    from repro_torch.compress.api import make_compressor
+    from repro_torch.core.engine import (Topology, make_round_engine,
+                                         uplink_pipeline)
+    from repro_torch.core.types import FLConfig
+    G, Ce = mesh.shape["pod"], mesh.shape["data"]
+    _, bsizes = model_blocks(model, mesh)
+    data_fn = paper_data(model, G * Ce, dev, (G, Ce))
+    lines = []
+    for label, kw, may, must in HIER_M_RUNS:
+        runs = {}
+        for backend in ("kernel", "jax"):
+            fl = FLConfig(backend=backend, **dict(TOPO_FL, **HIER_M_FL, **kw))
+            eng = make_round_engine(model, fl, Topology.hier(fl.sync_every),
+                                    chunk=PAPER_LM_SEQ, mesh=mesh)
+            cloud = [r for r in range(MESH_M_ROUNDS)
+                     if (r + 1) % fl.sync_every == 0]
+            what = f"15j hier {label} {backend}"
+            st, ms, times, recs, ran = grouped_run(
+                rank, eng, eng.init_fn(0), data_fn, MESH_M_ROUNDS, what,
+                lambda r: r // (Ce * 2), cloud)
+            check_ran(rank, ran, backend, may, must, what)
+            plain = FLConfig(**dict(TOPO_FL, **HIER_M_FL, **kw))
+            edge = pipe_bytes(uplink_pipeline(plain), bsizes, dev)
+            pod = pipe_bytes(make_compressor(fl.pod_compressor), bsizes, dev)
+            want = {"edge": [edge] * MESH_M_ROUNDS,
+                    "cloud": [pod if r in cloud else 0
+                              for r in range(MESH_M_ROUNDS)],
+                    "model": [0] * MESH_M_ROUNDS}
+            for hop, w in want.items():
+                if wire_bytes(recs, hop) != w:
+                    rank_fail(rank, f"{what}: {hop} bytes "
+                                    f"{wire_bytes(recs, hop)} != its "
+                                    f"blocks' planes {w}")
+            led = [float(v) for v in ms["ledger"].uplink_wire]
+            t = eng.terms
+            if led != [float(torch.tensor(t["edge_wire"] + (
+                    t["cloud_wire"] if r in cloud else 0.0),
+                    dtype=torch.float32)) for r in range(MESH_M_ROUNDS)]:
+                rank_fail(rank, f"{what}: ledger {led}, terms {t}")
+            div = [float(v) for v in ms["pod_divergence"]]
+            losses = [float(v) for v in ms["loss"]]
+            if any(div[r] != 0.0 for r in cloud) or not all(
+                    v == v and abs(v) < 1e6 for v in losses):
+                rank_fail(rank, f"{what}: pod_divergence {div}, loss "
+                                f"{losses}")
+            # the cloud hop runs in every data index's pod group (the
+            # reference's shard_map over "pod"): one group's sum is billed
+            d0 = mesh.axis_index("data") == 0
+            sums = {"edge": sum_ranks(wire_bytes(recs, "edge")[cloud[0]]),
+                    "cloud": sum_ranks(wire_bytes(recs, "cloud")[cloud[0]]
+                                       if d0 else 0)}
+            runs[backend] = (st, ms)
+            lines.append(
+                f"phase 15j hier pod {G} x data {Ce} x model 2 {label} "
+                f"backend={backend}: round times "
+                f"{', '.join(f'{x:.3f}' for x in times)} s, by hop "
+                + hop_line(recs, times, ("edge", "cloud", "metrics"))
+                + f"; each rank's edge {edge:,} B and cloud {pod:,} B its "
+                f"blocks' planes; the ranks' edge {sums['edge']:,} B "
+                f"against the ledger's edge_wire {t['edge_wire']:,.0f} B "
+                f"(gap {sums['edge'] - t['edge_wire']:+,.0f} B: a "
+                f"replicated leaf crosses from both model ranks, each "
+                f"block carries its own side info"
+                + (", and UVeQ's key plane is 32 bits above the billed "
+                   "seed a payload" if "uveq" in fl.uplink_compressor
+                   else "")
+                + f"), data index 0's pod group's cloud {sums['cloud']:,} "
+                f"B against cloud_wire {t['cloud_wire']:,.0f} B; "
+                f"pod_divergence {fmt(div)}, "
+                f"loss {fmt(losses)}; params bit-equal within each pod "
+                f"every round and on all 8 ranks after the cloud round, "
+                f"launches {ran}")
+        n = backend_pairs(runs, f"15j hier {label}", rank)
+        lines.append(f"phase 15j hier {label}: kernel and plain backends "
+                     f"bit-identical ({n} tensors)")
+    return lines
+
+
+def gossip_model_axis(rank, model, mesh, dev):
+    """15j's gossip at data 4 x model 2: GOSSIP_M_RUNS on both backends,
+    MESH_M_ROUNDS rounds from per-node perturbed params (a node's model
+    ranks perturb alike): params bit-equal on a node's 2 ranks every
+    round, each rank's ``mix`` sends its blocks' payload once per graph
+    entry that names it a source, its ``model`` hop its f32 blocks, the
+    backends bit-identical."""
+    from repro_torch.compress.api import make_compressor
+    from repro_torch.core.engine import (Topology, _graph_edges,
+                                         expander_graph, make_round_engine)
+    from repro_torch.core.types import FLConfig
+    C = mesh.shape["data"]
+    me = mesh.axis_index("data")
+    _, bsizes = model_blocks(model, mesh)
+    data_fn = paper_data(model, C, dev)
+    lines = []
+    for graph_name, spec, may, must in GOSSIP_M_RUNS:
+        runs = {}
+        graph = None if graph_name == "ring" else expander_graph(C)
+        topo = Topology.gossip(graph)
+        sends = sum(1 for g, _ in topo.graph for s, _ in _graph_edges(g, C)
+                    if s == me)
+        per = pipe_bytes(make_compressor(
+            spec, fraction=FLConfig().topk_fraction), bsizes, dev)
+        for backend in ("kernel", "jax"):
+            fl = FLConfig(backend=backend, uplink_compressor=spec,
+                          local_lr=0.01, local_steps=1)
+            eng = make_round_engine(model, fl, topo, chunk=PAPER_LM_SEQ,
+                                    mesh=mesh)
+            st = eng.init_fn(0)
+            g = torch.Generator(device=dev)
+            g.manual_seed(9 + me)
+            st.params = {n: (p.float() + 0.1 * torch.randn(
+                p.shape, generator=g, device=dev)).to(p.dtype)
+                for n, p in st.params.items()}
+            what = f"15j gossip {graph_name} {spec} {backend}"
+            st, ms, times, recs, ran = grouped_run(
+                rank, eng, st, data_fn, MESH_M_ROUNDS, what,
+                lambda r: r // 2)
+            check_ran(rank, ran, backend, may, must, what)
+            want = {"mix": [sends * per] * MESH_M_ROUNDS,
+                    "model": [4 * sum(bsizes)] * MESH_M_ROUNDS}
+            for hop, w in want.items():
+                if wire_bytes(recs, hop) != w:
+                    rank_fail(rank, f"{what}: {hop} bytes "
+                                    f"{wire_bytes(recs, hop)} != {w}")
+            mix = sum_ranks(wire_bytes(recs, "mix")[0])
+            cons = [float(v) for v in ms["consensus"]]
+            if not all(v == v for v in cons):
+                rank_fail(rank, f"{what}: consensus {cons}")
+            runs[backend] = (st, ms)
+            lines.append(
+                f"phase 15j gossip {graph_name} data {C} x model 2 {spec} "
+                f"backend={backend}: round times "
+                f"{', '.join(f'{x:.3f}' for x in times)} s, by hop "
+                + hop_line(recs, times, ("mix", "model", "metrics"))
+                + f"; each rank sends its blocks' {per:,} B {sends} times "
+                f"a round, the ranks' mix {mix:,} B against the ledger's "
+                f"mix_wire {eng.terms['mix_wire']:,.0f} B (gap "
+                f"{mix - eng.terms['mix_wire']:+,.0f} B); consensus "
+                f"{fmt(cons)}; params bit-equal on each node's ranks "
+                f"every round, launches {ran}")
+        n = backend_pairs(runs, f"15j gossip {graph_name} {spec}", rank)
+        lines.append(f"phase 15j gossip {graph_name} {spec}: kernel and "
+                     f"plain backends bit-identical ({n} tensors)")
+    return lines
+
+
+def mesh_model_axis_ranks(rank, world, init, out_dir):
+    """One of phase 15j's 8 ranks on the card (gloo): hier at pod 2 x
+    data 2 x model 2, then gossip at data 4 x model 2, each part's kernel
+    launches counted from 0 in this rank."""
+    dev = rank_setup(rank, world, init)
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch("paper_lm"))
+    report = {"rank": rank, "device": str(dev), "parts": {}}
+    for part, fn, shape in (("hier", hier_model_axis, MESH3),
+                            ("gossip", gossip_model_axis, MESH42)):
+        mesh = make_mesh(shape, dev)
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        lines = fn(rank, model, mesh, dev)
+        report["parts"][part] = {
+            "launches": dict(launch_counts()),
+            "seconds": time.perf_counter() - t0, "lines": lines}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def mesh_model_axis_phase(dev):
+    """Phase 15j: 8 ranks on the card over gloo, hier and gossip on a
+    model axis of 2; each rank's launches are added here to this
+    process's counts."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reps = run_group(mesh_model_axis_ranks, MESH_M_RANKS, "phase15j")
+    card = card_line()
+    for part in ("hier", "gossip"):
+        for line in reps[0]["parts"][part]["lines"]:
+            print(f"{line} [{card}]", flush=True)
+        total = {k: sum(r["parts"][part]["launches"][k] for r in reps)
+                 for k in KERNELS}
+        print(f"phase 15j {part}: kernel launches over the ranks {total} "
+              f"({max(r['parts'][part]['seconds'] for r in reps):.1f}s)",
+              flush=True)
+        build.LAUNCHES.update(total)
+    print(f"phase 15j: {MESH_M_RANKS} ranks over gloo on "
+          f"{sorted({r['device'] for r in reps})}, "
+          f"{time.perf_counter() - t0:.1f}s with the spawn", flush=True)
+
+
+def llama_hier_ranks(rank, world, init, out_dir):
+    """One of phase 15k's 4 ranks: llama3_2_1b (LLAMA_HIER_LAYERS) at pod
+    2 x data 1 x model 2, hier with the cloud hop on round 2, through the
+    kernels: the rank's peak memory, round times, the collectives' share
+    by hop, params bit-equal within the pod every round and on all ranks
+    after the cloud round."""
+    dev = rank_setup(rank, world, init)
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.compress.api import make_compressor
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import (Topology, make_round_engine,
+                                         uplink_pipeline)
+    from repro_torch.core.types import FLConfig
+    from repro_torch.data.synthetic import sample_round
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("llama3_2_1b")
+    if LLAMA_HIER_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, num_layers=LLAMA_HIER_LAYERS)
+    model = Model(cfg)
+    mesh = make_mesh(LLAMA_HIER_MESH, dev)
+    G, Ce = mesh.shape["pod"], mesh.shape["data"]
+    _, bsizes = model_blocks(model, mesh)
+    fl = FLConfig(backend="kernel", local_steps=1, local_lr=0.05,
+                  **LLAMA_HIER_FL)
+    eng = make_round_engine(model, fl, Topology.hier(fl.sync_every),
+                            chunk=LLAMA_SEQ, mesh=mesh)
+    data = fed_data(model, G * Ce, LLAMA_SEQ, LLAMA_BATCH)
+
+    def data_fn(r):
+        return {k: v.reshape((G, Ce) + tuple(v.shape[1:]))
+                for k, v in sample_round(data, r, dev).items()
+                if k in ("tokens", "labels", "mask")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.LAUNCHES.clear()
+    cloud = [r for r in range(LLAMA_ROUNDS) if (r + 1) % fl.sync_every == 0]
+    state, ms, times, recs, ran = grouped_run(
+        rank, eng, eng.init_fn(0), data_fn, LLAMA_ROUNDS, "15k",
+        lambda r: r // (Ce * 2), cloud)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check_ran(rank, ran, "kernel", _FUSED,
+              ("threshold_sparsify", "qsgd_pack", "qsgd_quantize"), "15k")
+    losses = [float(v) for v in ms["loss"]]
+    if not all(v == v and abs(v) < 1e6 for v in losses) or not all(
+            bool(torch.isfinite(p.float()).all())
+            for p in state.params.values()):
+        rank_fail(rank, f"15k: loss or params not finite ({losses})")
+    plain = FLConfig(local_steps=1, local_lr=0.05, **LLAMA_HIER_FL)
+    edge = pipe_bytes(uplink_pipeline(plain), bsizes, dev)
+    pod = pipe_bytes(make_compressor(fl.pod_compressor), bsizes, dev)
+    if wire_bytes(recs, "edge") != [edge] * LLAMA_ROUNDS or \
+            wire_bytes(recs, "cloud") != [pod if r in cloud else 0
+                                          for r in range(LLAMA_ROUNDS)]:
+        rank_fail(rank, f"15k: edge {wire_bytes(recs, 'edge')} (its "
+                        f"blocks' {edge}), cloud {wire_bytes(recs, 'cloud')}"
+                        f" (its blocks' {pod})")
+    if peak >= LLAMA_PEAK_GIB:
+        rank_fail(rank, f"15k: peak {peak:.2f} GiB")
+    hops = sorted({r.hop for rr in recs for r in rr})
+    report = {"rank": rank, "device": str(dev), "peak_gib": peak,
+              "times": times, "losses": losses, "launches": ran,
+              "layers": cfg.num_layers, "block_elems": sum(bsizes),
+              "params": model.param_count(), "terms": dict(eng.terms),
+              "bytes": {h: wire_bytes(recs, h) for h in hops},
+              "seconds": {h: [sum(r.seconds for r in rr if r.hop == h)
+                              for rr in recs] for h in hops},
+              "reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def llama_hier_phase(dev):
+    """Phase 15k: llama3_2_1b as 4 ranks sharing the card over gloo, hier
+    at pod 2 x data 1 x model 2 (each pod one client trained whole by its
+    2 model ranks), 2 rounds through the kernels, the cloud hop on the
+    second."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reps = run_group(llama_hier_ranks, LLAMA_HIER_RANKS, "phase15k")
+    card = card_line()
+    for r in reps:
+        print(f"phase 15k llama3_2_1b hier {LLAMA_HIER_MESH} rank "
+              f"{r['rank']} ({r['layers']} layers, {r['params']:,} params, "
+              f"its blocks {r['block_elems']:,} elements): peak memory "
+              f"{r['peak_gib']:.2f} GiB allocated, {r['reserved_gib']:.2f} "
+              f"GiB reserved (limit {LLAMA_PEAK_GIB:.0f}), round times "
+              f"{', '.join(f'{t:.3f}' for t in r['times'])} s, collectives "
+              f"by hop "
+              + "; ".join(f"{h} {shares(v, r['times'])}"
+                          for h, v in r["seconds"].items())
+              + ", bytes a round by hop "
+              + "; ".join(f"{h} {v}" for h, v in r["bytes"].items())
+              + f", loss {fmt(r['losses'])}, launches {r['launches']} "
+              f"[{card}]", flush=True)
+    t = reps[0]["terms"]
+    print(f"phase 15k: the ranks' peaks {sum(r['peak_gib'] for r in reps):.2f}"
+          f" GiB together; ledger edge_wire {t['edge_wire']:,.0f} B, "
+          f"cloud_wire {t['cloud_wire']:,.0f} B; params bit-equal within "
+          f"each pod every round and on all ranks after the cloud round; "
+          f"{time.perf_counter() - t0:.1f}s with the spawn", flush=True)
+    build.LAUNCHES.update({k: sum(r["launches"][k] for r in reps)
+                           for k in KERNELS})
+
+
 def nccl_cli_phase(dev):
     """Phase 15e: the train CLI with --nproc 1 --dist-backend nccl (the
     rank spawned by the CLI, on cuda:0) for the star and for the hierarchy
     at pod 1 x data 1: the NCCL path built and run on the card.  The
     CLI's rank prints; its launches stay in that process."""
     from repro_torch.launch import train
-    base = ["--nproc", "1", "--dist-backend", "nccl", "--backend", "kernel",
+    base = ["--nproc", "1", "--dist-backend", "nccl", "--model-parallel",
+            "1", "--backend", "kernel",
             "--rounds", "2", "--seq", str(PAPER_LM_SEQ),
             "--batch-per-client", str(PAPER_LM_BATCH), "--local-steps", "1",
             "--compressor", "topk:0.05>>qsgd:4@fused"]
@@ -5188,7 +5608,8 @@ def main():
                   lambda d: full_width_phase(d, "13b"),
                   lambda d: full_width_phase(d, "13c"),
                   serve_parity_phase, serve_full_phase, train_4k_phase,
-                  topology_phase, llama_star_phase, nccl_cli_phase):
+                  topology_phase, llama_star_phase, mesh_model_axis_phase,
+                  llama_hier_phase, nccl_cli_phase):
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         phase(dev)

@@ -69,13 +69,17 @@ def unpack4(packed, n: int):
 
 def payload_planes(payload) -> list:
     """The tensors of an encoded payload in ``jax.tree.leaves`` order (dict
-    keys sorted, tuples in order): what a collective moves.  A SecAgg
-    payload's ``secagg_ctx`` (mask key, ring index, cohort) rides out of
-    band, unbilled (``secure_agg.CTX_BITS``), and is not among them."""
+    keys sorted, tuples in order): what a collective moves.  A key the
+    payload carries (UVeQ's ``useed``, RandMask's ``seed``: any object
+    with a ``plane`` method, ``repro_torch.core.rng.Key``) is its plane,
+    8 bytes on the payload's device, the reference's ``u32[2]`` key.  A
+    SecAgg payload's ``secagg_ctx`` (mask key, ring index, cohort) rides
+    out of band, unbilled (``secure_agg.CTX_BITS``), and is not among
+    them."""
     out = []
 
     def walk(node):
-        if isinstance(node, torch.Tensor):
+        if isinstance(node, torch.Tensor) or hasattr(node, "plane"):
             out.append(node)
         elif isinstance(node, dict):
             for k in sorted(node):
@@ -85,7 +89,8 @@ def payload_planes(payload) -> list:
             for v in node:
                 walk(v)
     walk(payload)
-    return out
+    dev = next((t.device for t in out if isinstance(t, torch.Tensor)), None)
+    return [t if isinstance(t, torch.Tensor) else t.plane(dev) for t in out]
 
 
 def payload_nbytes(pipe, n: int, device="cpu") -> int:

@@ -164,7 +164,14 @@ def comm_state_init(pipe, params: dict, lead, device):
     client count C, or a tuple such as ``(G, Ce)``; on a mesh each rank
     holds its own row, ``lead`` 1 (star, gossip) or ``(1, 1)`` (hier).
     ``params`` maps each leaf to a tensor or to a shape (a model rank's
-    block of the leaf on the star's model axis)."""
+    block of the leaf on a model axis).
+
+    On a model axis a state array shaped like the leaf (error-feedback
+    residuals, DGC's ``u`` and ``v``) holds the rank's block, and any
+    other (DGC warm-up's round counter) is the reference's replicated
+    layout (``comm_state_specs``' ``P(*lead, None, ...)``): every model
+    rank keeps its own copy, and the copies advance identically, each
+    rank encoding with the same key and state."""
     lead = (lead,) if isinstance(lead, int) else tuple(lead)
 
     def zeros(t):
@@ -179,31 +186,6 @@ def comm_state_init(pipe, params: dict, lead, device):
     return tuple(zeros(pipe.init(tuple(getattr(p, "shape", p)),
                                  device="meta"))
                  for p in params.values())
-
-
-def check_model_axis_state(pipe, shapes) -> None:
-    """Raise unless every array of ``pipe``'s per-leaf state is shaped like
-    its leaf (error-feedback residuals, DGC's ``u`` and ``v``) or is a
-    SecAgg mask context, for each shape of ``shapes``: on a model axis
-    such state splits into the rank's block, while other state (DGC
-    warm-up's round counter) would be replicated over the model ranks, a
-    layout the port does not hold to the reference."""
-    def walk(node, shape, key=None):
-        if isinstance(node, torch.Tensor):
-            if tuple(node.shape) != shape and key not in ("mask_idx",
-                                                          "mask_cohort"):
-                raise not_ported(
-                    f"{pipe.name!r} on a model axis (its state "
-                    f"{key!r} is not shaped like the leaf)",
-                    "repro.core.aggregation")
-        elif isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, shape, k)
-        elif isinstance(node, (tuple, list)):
-            for v in node:
-                walk(v, shape, key)
-    for shape in shapes:
-        walk(pipe.init(tuple(shape), device="meta"), tuple(shape))
 
 
 def index_state(st, c):
@@ -275,14 +257,17 @@ def lead_state(st, ndim: int):
 # ---------------------------------------------------------------------------
 
 def _rebuild(payload, planes, ctx_idx):
-    """``payload``'s structure with its tensors replaced by ``planes`` (in
-    :func:`payload_planes` order) and a SecAgg context re-indexed to the
-    sending client ``ctx_idx``."""
+    """``payload``'s structure with its tensors and keys replaced by
+    ``planes`` (in :func:`payload_planes` order; a key rebuilt from its
+    plane by its class's ``from_plane``) and a SecAgg context re-indexed
+    to the sending client ``ctx_idx``."""
     it = iter(planes)
 
     def walk(node):
         if isinstance(node, torch.Tensor):
             return next(it)
+        if hasattr(node, "plane"):
+            return type(node).from_plane(next(it))
         if isinstance(node, dict):
             done = {}
             for k in sorted(node):
@@ -299,11 +284,12 @@ def _rebuild(payload, planes, ctx_idx):
 
 
 def check_payload(pipe, payload):
-    """Raise for a payload the collectives cannot move: one whose leaves
-    other than the SecAgg context are not all tensors (UVeQ's and
-    RandMask's payloads carry a key object)."""
+    """Raise for a payload the collectives cannot move: one with a leaf
+    other than a tensor, a key (an object with a ``plane``, and a
+    ``from_plane`` on its class, which crosses as its plane) or the
+    SecAgg context."""
     def walk(node):
-        if isinstance(node, torch.Tensor):
+        if isinstance(node, torch.Tensor) or hasattr(node, "plane"):
             return
         if isinstance(node, dict):
             for k, v in node.items():
@@ -315,17 +301,18 @@ def check_payload(pipe, payload):
                 walk(v)
             return
         raise not_ported(f"{pipe.name!r} across ranks (its payload carries "
-                         f"a {type(node).__name__}, not a tensor)",
-                         "repro.core.aggregation")
+                         f"a {type(node).__name__}, not a tensor or a key "
+                         f"plane)", "repro.core.aggregation")
     walk(payload)
 
 
 def gather_payload(pipe, payload, mesh, axes, hop: str,
                    per: int = 1) -> list:
     """Every rank's payload along ``axes``, in axis order: each plane of
-    ``payload`` goes through one ``all_gather``.  ``per`` ranks in a row
-    send for one client (a client's model ranks, model-minor): the SecAgg
-    context of row j is re-indexed to client ``j // per``."""
+    ``payload`` (a key's too, rebuilt on receipt) goes through one
+    ``all_gather``.  ``per`` ranks in a row send for one client (a
+    client's model ranks, model-minor): the SecAgg context of row j is
+    re-indexed to client ``j // per``."""
     check_payload(pipe, payload)
     gathered = [all_gather(t, mesh, axes, hop)
                 for t in payload_planes(payload)]
@@ -335,9 +322,10 @@ def gather_payload(pipe, payload, mesh, axes, hop: str,
 
 
 def permute_payload(pipe, payload, mesh, axis, pairs, src_of, hop: str):
-    """The payload this rank receives over ``pairs`` (ppermute), with the
-    sender's SecAgg index (``src_of``; None when nothing arrives: the zero
-    payload, whose context is the zero one)."""
+    """The payload this rank receives over ``pairs`` (ppermute; a key
+    crosses as its plane), with the sender's SecAgg index (``src_of``;
+    None when nothing arrives: the zero payload, whose context is the
+    zero one)."""
     check_payload(pipe, payload)
     planes = ppermute(payload_planes(payload), mesh, axis, pairs, hop)
     if src_of is None:
@@ -355,6 +343,27 @@ def _zero_ctx(payload):
     if isinstance(payload, (tuple, list)):
         return type(payload)(_zero_ctx(v) for v in payload)
     return payload
+
+
+def model_hop(block: torch.Tensor, dim, mesh) -> torch.Tensor:
+    """The leaf from every model rank's ``block`` of it: an ``all_gather``
+    over ``model`` under the hop ``model`` (bookkeeping, never billed; a
+    replicated leaf is model rank 0's), or ``block`` itself without a
+    model axis."""
+    if mesh.shape.get("model", 1) == 1:
+        return block
+    return sharding.unblock(all_gather(block, mesh, ("model",), "model"),
+                            dim)
+
+
+def decode_blocks(pipe, rows, n: int, dim, M: int, reduce) -> list:
+    """The blocks of a leaf from the rows of a gather over a client axis
+    and ``model`` (client-major, ``M`` rows a client): block ``b``
+    ``reduce``s the decodes (length ``n``) of every client's row ``b``,
+    handed over one at a time; a replicated leaf (``dim`` None) is one
+    block, model rank 0's."""
+    return [reduce(pipe.decode(p, n) for p in rows[b::M])
+            for b in range(M if dim is not None else 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +436,9 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire",
                 # the wire, f32 is the faithful baseline
                 contrib = (weights[idx] * flat).to(leaf.dtype)
                 tot = all_reduce_sum(contrib, mesh, axes, hop)
-                out = (tot.to(torch.float32) / wsum).reshape(local_shape)
-                if M > 1:
-                    out = sharding.unblock(all_gather(
-                        out.to(leaf.dtype), mesh, ("model",), "model"), dim)
+                out = model_hop((tot.to(torch.float32) / wsum)
+                                .reshape(local_shape).to(leaf.dtype), dim,
+                                mesh)
             else:
                 st = (index_state(comm_state[li], 0) if stateful
                       else pipe.init((n,), device=flat.device))
@@ -441,16 +449,11 @@ def make_aggregator(mesh, pipe, client_axis: str = "data", hop: str = "wire",
                 rows = gather_payload(pipe, payload, mesh, wire_axes, hop,
                                       per=M)
                 del payload, flat
-                blocks = []
-                for b in range(M if dim is not None else 1):
-                    dec = torch.stack([pipe.decode(p, n)
-                                       for p in rows[b::M]])
-                    blocks.append(((weights[:, None] * dec).sum(0) / wsum)
-                                  .reshape(local_shape))
-                    del dec
+                out = sharding.unblock(decode_blocks(
+                    pipe, rows, n, dim, M,
+                    lambda decs: ((weights[:, None] * torch.stack(list(decs)))
+                                  .sum(0) / wsum).reshape(local_shape)), dim)
                 del rows
-                out = sharding.unblock(blocks, dim)
-                del blocks
                 if stateful:
                     st_out.append(lead_state(new_st, 1))
             agg[name] = out.reshape(leaf.shape[1:]).to(leaf.dtype)

@@ -1118,9 +1118,9 @@ def _gather_cat(mesh, axes):
 
 
 def _model_blocks(model: Model, mesh):
-    """The star's model axis: ``({leaf: spec}, {leaf: its model dim or
-    None}, {leaf: this rank's block shape})`` by
-    ``repro_torch.models.sharding`` (specs None without a model axis)."""
+    """The model axis: ``({leaf: spec}, {leaf: its model dim or None},
+    {leaf: this rank's block shape})`` by ``repro_torch.models.sharding``
+    (specs None without a model axis)."""
     M = mesh.shape.get("model", 1)
     shapes = {n: tuple(d.shape) for n, d in model.defs.items()}
     if M == 1:
@@ -1133,6 +1133,15 @@ def _model_blocks(model: Model, mesh):
     dims = {n: sharding.model_dim(sp) for n, sp in specs.items()}
     return specs, dims, {n: sharding.block_shape(s, dims[n], M)
                          for n, s in shapes.items()}
+
+
+def _running_sum(decs) -> torch.Tensor:
+    """The sum of ``decs`` in order, one decode alive beside the sum (the
+    sum of a (G, n) stack over its first dim, without the stack)."""
+    acc = None
+    for d in decs:
+        acc = d if acc is None else acc.add_(d)
+    return acc
 
 
 def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
@@ -1176,8 +1185,6 @@ def _build_star(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
     specs, dims, bshapes = _model_blocks(model, mesh)
     M = mesh.shape.get("model", 1)
     m = mesh.axis_index("model") if M > 1 else 0
-    if specs is not None and up.stateful:
-        aggregation.check_model_axis_state(up, bshapes.values())
     scaffold = fl.algorithm == "scaffold"
     scenario = _fl_scenario(fl)
     population = _attach_scenario(population, scenario)
@@ -1276,7 +1283,19 @@ def _build_hier(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
     over each ``pod`` group, quantized with ``pod_compressor`` (the cloud
     hop).  A rank's state is its pod's params and server-optimizer state
     and its own (1, 1)-led pipeline row; its batch is its client's
-    ``[pod, data]`` slice of a (G, Ce, ...) batch."""
+    ``[pod, data]`` slice of a (G, Ce, ...) batch.
+
+    On a model axis of M ranks (pod G x data Ce x model M) each of a
+    client's M ranks trains the client's whole update and encodes its
+    block of every leaf (``repro_torch.models.sharding``; a replicated
+    leaf whole) with the key the reference's ``shard_map`` gives every
+    model rank of the client; its pipeline rows hold that block.  The
+    edge hop gathers the block payloads over the pod's ``data`` and
+    ``model`` ranks and every rank decodes every (client, block); the
+    cloud hop quantizes each block over ``pod`` and ``model`` the same
+    way; the pod's leaf is rebuilt from its blocks, a replicated leaf
+    being model rank 0's.  The SecAgg ring stays per pod over ``data``:
+    a rank masks its block with the pod's key at its client index."""
     if "pod" not in mesh.axis_names:
         raise AssertionError("hierarchical FL needs a pod axis")
     if fl.algorithm == "scaffold":
@@ -1285,6 +1304,11 @@ def _build_hier(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
             "use fedavg/fedsgd/fedprox (or the star topology for SCAFFOLD)")
     G, Ce = mesh.shape["pod"], mesh.shape["data"]
     gi, ci = mesh.axis_index("pod"), mesh.axis_index("data")
+    _, dims, bshapes = _model_blocks(model, mesh)
+    M = mesh.shape.get("model", 1)
+    m = mesh.axis_index("model") if M > 1 else 0
+    edge_axes = ("data", "model") if M > 1 else ("data",)
+    cloud_axes = ("pod", "model") if M > 1 else ("pod",)
     # the edge hop runs the full uplink pipeline (EF / DGC included)
     up = uplink_pipeline(fl)
     pod_comp = make_compressor(fl.pod_compressor, block=fl.qsgd_block,
@@ -1310,18 +1334,25 @@ def _build_hier(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
 
     def agg_edge(deltas, weights, rng, comm_state):
         """The edge hop: this pod's weighted mean of its clients' decoded
-        payloads, the payloads gathered over the pod's data group; the
-        rank's pipeline row stays with it."""
+        payloads, the payloads gathered over the pod's data group (and
+        ``model``); the rank's pipeline row stays with it.  ``deltas`` is
+        consumed leaf by leaf."""
         wrow = weights[gi]
+        wsum = torch.clamp(wrow.sum(), min=1e-9)
         out, st_out = {}, []
-        for li, (name, leaf) in enumerate(deltas.items()):
-            flat = leaf.reshape(-1).to(torch.float32)
+        for li, name in enumerate(list(deltas)):
+            leaf = deltas.pop(name)
+            dim = dims[name]
+            local = sharding.block(leaf, dim, m, M)
+            flat = local.reshape(-1).to(torch.float32)
             n = flat.shape[0]
             r = rng.fold_in(li).fold_in(gi * Ce + ci)
             if up.is_identity:
                 tot = aggregation.all_reduce_sum(wrow[ci] * flat, mesh,
                                                  ("data",), "edge")
-                edge = tot / torch.clamp(wrow.sum(), min=1e-9)
+                edge = aggregation.model_hop(
+                    (tot / wsum).reshape(local.shape).to(leaf.dtype), dim,
+                    mesh)
             else:
                 st = (_index_state(comm_state[li], (0, 0)) if stateful
                       else up.init((n,), device=flat.device))
@@ -1331,35 +1362,51 @@ def _build_hier(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
                     st = inject_mask_ctx(st, mkey, ci, Ce)
                 payload, new_st = up.encode(st, r, flat)
                 rows = aggregation.gather_payload(up, payload, mesh,
-                                                  ("data",), "edge")
-                dec = torch.stack([up.decode(p, n) for p in rows])
-                edge = (wrow[:, None] * dec).sum(0) / \
-                    torch.clamp(wrow.sum(), min=1e-9)
+                                                  edge_axes, "edge", per=M)
+                del payload, flat
+                edge = sharding.unblock(aggregation.decode_blocks(
+                    up, rows, n, dim, M,
+                    lambda decs: ((wrow[:, None] * torch.stack(list(decs)))
+                                  .sum(0) / wsum).reshape(local.shape)), dim)
+                del rows
                 if stateful:
                     st_out.append(aggregation.lead_state(new_st, 2))
             out[name] = edge.reshape(leaf.shape).to(leaf.dtype)
+            del leaf, local, edge
         return out, (tuple(st_out) if stateful else None)
 
     def sync_models(params, rng):
         """The cloud hop: the pods' models averaged over each pod group,
-        quantized with ``pod_compressor``; every pod leaves with the same
-        model."""
+        quantized with ``pod_compressor`` block by block; every pod leaves
+        with the same model.  ``params`` is consumed leaf by leaf, and a
+        block is cast to the leaf's dtype before the leaf is rebuilt, so
+        that one leaf's f32 working set is alive at a time."""
         out = {}
-        for li, (name, leaf) in enumerate(params.items()):
-            flat = leaf.reshape(-1).to(torch.float32)
+        for li, name in enumerate(list(params)):
+            leaf = params.pop(name)
+            dim = dims[name]
+            local = sharding.block(leaf, dim, m, M)
+            flat = local.reshape(-1).to(torch.float32)
+            n = flat.shape[0]
             r = rng.fold_in(li)
             if pod_comp.is_identity:
-                synced = aggregation.all_reduce_sum(
-                    flat, mesh, ("pod",), "cloud") / G
+                synced = aggregation.model_hop((aggregation.all_reduce_sum(
+                    flat, mesh, ("pod",), "cloud") / G)
+                    .reshape(local.shape).to(leaf.dtype), dim, mesh)
             else:
                 pay, _ = pod_comp.encode(
                     pod_comp.init(flat.shape, device=flat.device),
                     r.fold_in(gi), flat)
                 rows = aggregation.gather_payload(pod_comp, pay, mesh,
-                                                  ("pod",), "cloud")
-                synced = torch.stack([pod_comp.decode(p, flat.shape[0])
-                                      for p in rows]).sum(0) / G
+                                                  cloud_axes, "cloud", per=M)
+                del pay, flat
+                synced = sharding.unblock(aggregation.decode_blocks(
+                    pod_comp, rows, n, dim, M,
+                    lambda decs: (_running_sum(decs) / G)
+                    .reshape(local.shape).to(leaf.dtype)), dim)
+                del rows
             out[name] = synced.reshape(leaf.shape).to(leaf.dtype)
+            del leaf, local, synced
         return out
 
     def pod_divergence(params):
@@ -1468,7 +1515,7 @@ def _build_hier(model: Model, fl: FLConfig, topo: Topology, mesh, chunk: int,
             params=params,
             server_opt_state=server_opt.init_state(fl.server_opt, params),
             control=None, client_controls=None,
-            comm_state=(comm_state_init(up, params, (1, 1), device)
+            comm_state=(comm_state_init(up, bshapes, (1, 1), device)
                         if stateful else None),
             rng=PRNGKey(fl.seed), round=0)
 
@@ -1495,9 +1542,21 @@ def _build_gossip(model: Model, fl: FLConfig, topo: Topology, mesh,
     model, takes a local SGD step, then mixes in its in-neighbours' decoded
     payloads point to point, one ``ppermute`` per graph entry.  A rank's
     state is its node's params and its own (1,)-led pipeline row; its
-    batch is its node's slice of a (C, ...) batch."""
+    batch is its node's slice of a (C, ...) batch.
+
+    On a model axis of M ranks each of a node's ranks encodes its block of
+    every leaf (``repro_torch.models.sharding``); the ``ppermute`` of a
+    graph entry runs over ``data`` within each model index, so it carries
+    every (node, block) payload, the mix runs per block and the leaf is
+    rebuilt from the node's blocks (a replicated leaf is model rank 0's).
+    A ``pod`` axis is the reference's too: the node params are sharded
+    over ``data`` alone, so every pod runs the same gossip over its own
+    data ranks."""
     C = mesh.shape["data"]
     me = mesh.axis_index("data")
+    _, dims, bshapes = _model_blocks(model, mesh)
+    M = mesh.shape.get("model", 1)
+    m = mesh.axis_index("model") if M > 1 else 0
     # biased compressors gossip with error feedback, but not DGC momentum:
     # DGC accumulates update deltas and the mix ships raw parameters
     if fl.dgc_momentum > 0.0:
@@ -1536,7 +1595,9 @@ def _build_gossip(model: Model, fl: FLConfig, topo: Topology, mesh,
     def mix(params, rng, comm_state):
         out, st_out = {}, []
         for li, (name, leaf) in enumerate(params.items()):
-            flat = leaf.reshape(-1).to(torch.float32)
+            dim = dims[name]
+            local = sharding.block(leaf, dim, m, M)
+            flat = local.reshape(-1).to(torch.float32)
             n = flat.shape[0]
             r = rng.fold_in(li)
             st = (_index_state(comm_state[li], 0) if stateful
@@ -1554,7 +1615,9 @@ def _build_gossip(model: Model, fl: FLConfig, topo: Topology, mesh,
                     src[0] if src else None, "mix")
                 dec = comp.decode(nb, n)
                 mixed = mixed + scalar_like(w, dec) * dec
-            out[name] = mixed.reshape(leaf.shape).to(leaf.dtype)
+            out[name] = aggregation.model_hop(
+                mixed.reshape(local.shape).to(leaf.dtype), dim,
+                mesh).reshape(leaf.shape)
             if stateful:
                 st_out.append(aggregation.lead_state(new_st, 1))
         return out, (tuple(st_out) if stateful else None)
@@ -1637,7 +1700,7 @@ def _build_gossip(model: Model, fl: FLConfig, topo: Topology, mesh,
     def state_from_params(params):
         return FLState(params=params, server_opt_state={}, control=None,
                        client_controls=None,
-                       comm_state=(comm_state_init(comp, params, 1, device)
+                       comm_state=(comm_state_init(comp, bshapes, 1, device)
                                    if stateful else None),
                        rng=PRNGKey(fl.seed), round=0)
 
@@ -1713,9 +1776,6 @@ def make_round_engine(model: Model, fl: FLConfig, topology: Topology,
     if kind in ("star", "hier", "gossip"):
         if mesh is None:
             raise ValueError(f"{kind} topology needs a mesh")
-        if kind != "star" and mesh.shape.get("model", 1) > 1:
-            raise not_ported(f"the {kind} topology on a model axis",
-                             "repro.models.sharding")
         dev = mesh.device if device is None else resolve_device(device)
         if kind == "star":
             engine = _build_star(model, fl, topology, mesh, chunk, dev,

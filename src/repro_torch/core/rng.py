@@ -12,6 +12,13 @@ not reproduce ``jax.random``'s bits; a test that needs the reference's
 draws passes its own object with the same seven methods (``split``,
 ``fold_in``, ``uniform``, ``normal``, ``randint``, ``permutation`` and
 ``bits``), backed by ``jax.random``.
+
+A payload that carries a key (UVeQ's ``useed``, RandMask's ``seed``)
+crosses ranks as the key's *plane*: :meth:`Key.plane` is one int64, the
+key's 63-bit digest, and :meth:`Key.from_plane` rebuilds on the receiver
+a key whose draws are the sender's (its own splits and fold-ins start
+from the digest).  A test's key object crosses the same way through its
+own ``plane`` / ``from_plane``.
 """
 from __future__ import annotations
 
@@ -22,13 +29,33 @@ import torch
 
 
 class Key:
-    """A deterministic key: a seed and the path of splits and fold-ins."""
+    """A deterministic key: a seed and the path of splits and fold-ins
+    (or a digest received from another rank, :meth:`from_digest`)."""
 
-    __slots__ = ("seed", "path")
+    __slots__ = ("seed", "path", "digest")
 
     def __init__(self, seed: int, path: tuple = ()):
         self.seed = int(seed)
         self.path = tuple(path)
+        self.digest = None
+
+    @classmethod
+    def from_digest(cls, digest: int) -> "Key":
+        """The key whose :meth:`seed_int` is ``digest``: it draws what the
+        key of that digest draws."""
+        k = cls(digest)
+        k.digest = int(digest)
+        return k
+
+    def plane(self, device=None) -> torch.Tensor:
+        """The key as a collective moves it: its digest, one int64."""
+        return torch.tensor([self.seed_int()], dtype=torch.int64,
+                            device=device)
+
+    @classmethod
+    def from_plane(cls, plane: torch.Tensor) -> "Key":
+        """The key a received :meth:`plane` stands for."""
+        return cls.from_digest(int(plane.reshape(-1)[0]))
 
     def split(self, n: int) -> list:
         return [Key(self.seed, self.path + (("s", i),)) for i in range(n)]
@@ -38,6 +65,8 @@ class Key:
 
     def seed_int(self) -> int:
         """A 63-bit integer digest of (seed, path)."""
+        if self.digest is not None:
+            return self.digest
         h = hashlib.blake2b(digest_size=8)
         h.update(struct.pack("<q", self.seed))
         for tag, v in self.path:

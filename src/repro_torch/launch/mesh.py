@@ -11,8 +11,9 @@ the order ``aggregation.client_index`` assumes and the order an
 ``all_gather`` over the client axes (and ``model``) returns.  One
 sub-group is made per axis slice: each pod's data ranks (the edge hop of
 the hierarchy), each data index's pod ranks (the cloud hop), and on a
-model axis each client's model ranks and the client axes together with
-``model`` (the star's wire, ``repro_torch.models.sharding``).
+model axis each client's model ranks and the client axes, or the pod
+axis, together with ``model`` (the star's wire, hier's edge and cloud
+hops, ``repro_torch.models.sharding``).
 
 :func:`init_ranks` joins the process group.  The caller always names the
 backend: ``nccl`` puts rank r on ``cuda:r`` (one card per rank), ``gloo``
@@ -152,8 +153,8 @@ def make_mesh(shape: dict, device: torch.device, axes_sets=None) -> Mesh:
     rank makes every sub-group, in one order (``dist.new_group`` is
     collective): for each subset in ``axes_sets`` (default: ``("data",)``,
     ``("pod",)`` and ``("pod", "data")``, those present, and with a model
-    axis above 1 also ``("model",)`` and the client axes with ``model``),
-    one group per slice."""
+    axis above 1 also ``("model",)``, the client axes with ``model`` and
+    ``("pod", "model")``, hier's cloud hop), one group per slice."""
     shape = {k: int(v) for k, v in shape.items()}
     world = dist.get_world_size()
     if _prod(shape.values()) != world:
@@ -163,7 +164,8 @@ def make_mesh(shape: dict, device: torch.device, axes_sets=None) -> Mesh:
     if axes_sets is None:
         sets = [("data",), ("pod",), ("pod", "data")]
         if shape.get("model", 1) > 1:
-            sets += [("model",), ("data", "model"), ("pod", "data", "model")]
+            sets += [("model",), ("data", "model"), ("pod", "model"),
+                     ("pod", "data", "model")]
         axes_sets = [a for a in sets if all(x in shape for x in a)]
     groups = {}
     for axes in axes_sets:

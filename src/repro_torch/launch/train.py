@@ -73,21 +73,27 @@ reference's npz format (``repro_torch.checkpoint``):
     PYTHONPATH=src python -m repro_torch.obs.report run.jsonl
 
 ``--nproc N`` (the reference's ``--devices``) runs the deployment path:
-N ranks of a ``torch.distributed`` group, spawned here, each one client,
-with ``--dist-backend`` nccl (rank r on ``cuda:r``, one card each) or
-gloo (every rank on ``cuda:0``, or on the CPU with ``--device cpu``).
-Without ``--population`` or ``--async`` that is the star: every round's
-uplink is a collective whose operand is the encoded payload.
-``--hierarchical`` runs client -> edge -> cloud on a (pod, data) mesh of
-2 pods when N is even and above 1 (else 1), the cloud hop every
-``--sync-every`` rounds.  Rank 0 prints.  In a process that already is a
-rank of an N-rank group, ``main`` runs that rank's part instead of
-spawning:
+N ranks of a ``torch.distributed`` group, spawned here, with
+``--dist-backend`` nccl (rank r on ``cuda:r``, one card each) or gloo
+(every rank on ``cuda:0``, or on the CPU with ``--device cpu``).
+``--model-parallel M`` (2 by default, as the reference's; at most N) is
+the model axis: N / M clients, each trained whole by its M model ranks,
+every rank encoding its block of each leaf (``repro_torch.models
+.sharding``), so ``--nproc N`` means N / 2 clients unless
+``--model-parallel 1`` is given.  Without ``--population`` or ``--async``
+that is the star on the reference's ``make_host_mesh(model=M)``: every
+round's uplink is a collective whose operand is the encoded payload.
+``--hierarchical`` runs client -> edge -> cloud on the reference's
+``make_host_mesh(model=M, pod=2, data=N // (2 M))`` (one pod where 2 M
+does not divide N), the cloud hop every ``--sync-every`` rounds.  Rank 0
+prints.  In a process that already is a rank of an N-rank group,
+``main`` runs that rank's part instead of spawning:
 
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 \
         --device cpu --dist-backend gloo --compressor "topk:0.05>>qsgd:8"
-    PYTHONPATH=src python -m repro_torch.launch.train --nproc 2 \
-        --dist-backend gloo --hierarchical --sync-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --nproc 8 \
+        --device cpu --dist-backend gloo --hierarchical --model-parallel 2 \
+        --sync-every 2
 
 With ``--nproc``, ``--trace`` writes rank 0's trace (topology ``star`` or
 ``hier``) with every rank's telemetry on, ``--profile-dir`` has every rank
@@ -100,13 +106,10 @@ write its own ``torch.profiler`` trace (``rank<r>.*``) into DIR, and
 
 One card cannot hold two NCCL ranks of one communicator, so on one card
 several ranks share it over gloo (staging each collective through the
-host) and NCCL runs at one rank.  ``--model-parallel M`` puts the star on
-the reference's ``make_host_mesh(model=min(M, N))``: N / M clients, each
-trained whole by its M model ranks, every rank encoding its block of
-each leaf (``repro_torch.models.sharding``); ``--hierarchical`` on a
-model axis is not ported.  ``--population`` stays on the single-process path,
-as in the reference; a population on the star is built through
-``make_round_engine(..., Topology.star(), mesh=, population=)``.
+host) and NCCL runs at one rank.  ``--population`` stays on the
+single-process path, as in the reference; a population on the star is
+built through ``make_round_engine(..., Topology.star(), mesh=,
+population=)``.
 
 ``--device`` defaults to ``cuda`` and the run fails without a card unless
 ``--device cpu`` is given.
@@ -198,9 +201,9 @@ def _parse(argv=None):
     ap.add_argument("--scenario-seed", type=int, default=0,
                     help="seed for the scenario's phase and dropout draws")
     ap.add_argument("--nproc", type=int, default=0,
-                    help="run N ranks of a torch.distributed group, one "
-                         "client each (the star, or --hierarchical); 0 = "
-                         "the single-process sim path")
+                    help="run N ranks of a torch.distributed group, "
+                         "--model-parallel M ranks a client (the star, or "
+                         "--hierarchical); 0 = the single-process sim path")
     ap.add_argument("--dist-backend", default="nccl",
                     choices=["nccl", "gloo"],
                     help="process-group backend with --nproc: nccl puts "
@@ -210,11 +213,11 @@ def _parse(argv=None):
                     help="with --nproc: client -> edge (pod) -> cloud")
     ap.add_argument("--sync-every", type=int, default=4,
                     help="hierarchical: the cloud hop's period in rounds")
-    ap.add_argument("--model-parallel", type=int, default=1,
-                    help="with --nproc N: the model axis' size M (the "
-                         "star only): N / M clients, each trained by its "
-                         "M model ranks, each encoding its block of every "
-                         "leaf")
+    ap.add_argument("--model-parallel", type=int, default=2,
+                    help="with --nproc N: the model axis' size M (at most "
+                         "N), as the reference's: N / M clients, each "
+                         "trained by its M model ranks, each encoding its "
+                         "block of every leaf")
     ap.add_argument("--seq", type=int, default=48)
     ap.add_argument("--batch-per-client", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -367,11 +370,8 @@ def main(argv=None):
 def _spawn(args, argv):
     """--nproc: check the request, then run the ranks (spawned: CUDA does
     not survive fork) and wait for them; rank 0 prints."""
-    from repro_torch.device import not_ported, resolve_device
+    from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import run_ranks
-    if args.hierarchical and args.model_parallel > 1:
-        raise not_ported("--hierarchical on a model axis "
-                         "(--model-parallel > 1)", "repro.models.sharding")
     if args.nproc < 1:
         raise ValueError("--hierarchical runs on a mesh of ranks: give "
                          "--nproc N")
@@ -455,13 +455,16 @@ def _rank_main(rank, nproc, init_method, args):
                       scenario_epoch_scale=args.scenario_epoch_scale,
                       scenario_seed=args.scenario_seed, seed=args.seed,
                       telemetry=bool(args.trace))
+        mp = min(args.model_parallel, nproc)
         if args.hierarchical:
-            G = 2 if nproc > 1 and nproc % 2 == 0 else 1
-            mesh = make_mesh({"pod": G, "data": nproc // G, "model": 1}, dev)
+            # the reference's make_host_mesh(model=mp, pod=2, data=n //
+            # (2 * mp)); one pod where 2 * mp does not divide the ranks
+            G = 2 if nproc % (2 * mp) == 0 else 1
+            mesh = make_mesh({"pod": G, "data": nproc // (G * mp),
+                              "model": mp}, dev)
             topo = Topology.hier(args.sync_every)
         else:
-            mesh = make_host_mesh(model=min(args.model_parallel, nproc),
-                                  device=dev)
+            mesh = make_host_mesh(model=mp, device=dev)
             topo = Topology.star()
         engine = make_round_engine(model, fl, topo, chunk=args.seq,
                                    mesh=mesh)

@@ -66,11 +66,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 def test_unported_knobs_raise_naming_the_reference_module():
     """The star (with or without a population), hier and gossip topologies
-    are ported, and so is the star on a model axis (their guards are in
-    test_torch_topology.py, test_torch_mesh_population.py and
-    test_torch_model_axis.py); what stays out raises naming its module:
-    pod-level clients, and hier and gossip on a model axis above 1 (the
-    engine and the CLI's --hierarchical)."""
+    are ported, on a model axis too (their tests are in
+    test_torch_topology.py, test_torch_mesh_population.py,
+    test_torch_model_axis.py and test_torch_mesh_model_axis.py), and the
+    CLI's ``--model-parallel`` defaults to the reference's 2; what stays
+    out raises naming its module: pod-level clients and FSDP's data-axis
+    dims."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import Topology, make_round_engine
     from repro_torch.core.population import ClientPopulation
@@ -79,6 +82,7 @@ def test_unported_knobs_raise_naming_the_reference_module():
     from repro_torch.launch import train
     from repro_torch.models.model import Model
     model = Model(get_arch("paper_lm"))
+    fsdp = Model(dataclasses.replace(get_arch("paper_lm"), fsdp=True))
     fl = FLConfig(uplink_compressor="qsgd:8")
     data4 = M.Mesh(shape={"data": 4, "model": 1}, rank=0,
                    device=torch.device("cpu"), backend="gloo", groups={})
@@ -86,20 +90,22 @@ def test_unported_knobs_raise_naming_the_reference_module():
                   device=torch.device("cpu"), backend="gloo", groups={})
     model2 = M.Mesh(shape={"pod": 2, "data": 1, "model": 2}, rank=0,
                     device=torch.device("cpu"), backend="gloo", groups={})
+    data2 = M.Mesh(shape={"pod": 2, "data": 2, "model": 2}, rank=0,
+                   device=torch.device("cpu"), backend="gloo", groups={})
     pop = ClientPopulation(n_clients=100, cohort=4)
     assert make_round_engine(model, fl, Topology.star(), mesh=data4,
                              population=pop).aux["population"] == pop
+    for topo in (Topology.hier(2), Topology.gossip()):
+        eng = make_round_engine(model, fl, topo, mesh=model2)
+        assert eng.n_clients == (2 if topo.kind == "hier" else 1)
+    assert train._parse([]).model_parallel == 2
     for call, module in (
             (lambda: make_round_engine(model, fl, Topology.star("pod"),
                                        mesh=pods), "repro.models.sharding"),
-            (lambda: make_round_engine(model, fl, Topology.hier(2),
-                                       mesh=model2), "repro.models.sharding"),
-            (lambda: make_round_engine(model, fl, Topology.gossip(),
-                                       mesh=model2), "repro.models.sharding"),
-            (lambda: train.main(["--nproc", "2", "--device", "cpu",
-                                 "--dist-backend", "gloo", "--hierarchical",
-                                 "--model-parallel", "2"]),
-             "repro.models.sharding")):
+            (lambda: make_round_engine(fsdp, fl, Topology.hier(2),
+                                       mesh=data2), "repro.models.sharding"),
+            (lambda: make_round_engine(fsdp, fl, Topology.gossip(),
+                                       mesh=data2), "repro.models.sharding")):
         with pytest.raises(NotImplementedError, match=module):
             call()
 

@@ -113,6 +113,29 @@ def quick_jit(fn):
         "xla_cpu_use_fusion_emitters": False})
 
 
+def reference_rounds(ref, sizes, rounds, x_of, key_of):
+    """A reference pipeline's rounds at every leaf size, for the stage
+    tables: ``[(n, r, x, key, payload, decode, state)]``, size-major.
+    Round r encodes and decodes ``x_of(n, r)`` with ``key_of(r)`` at every
+    size of ``sizes`` side by side in one :func:`ieee_jit` program,
+    compiled once for all rounds, each size's state carried over.  Its
+    values are the op-by-op run's bit for bit (one rounding per op in
+    both), which compiled every primitive again at every size and took
+    1.5–2.5x as long."""
+    step = ieee_jit(lambda sts, k, xs: [
+        (lambda pay, st: (pay, ref.decode(pay, n), st))(
+            *ref.encode(st, k, x)) for n, st, x in zip(sizes, sts, xs)])
+    states = [ref.init((n,)) for n in sizes]
+    out = []
+    for r in range(rounds):
+        key, xs = key_of(r), [x_of(n, r) for n in sizes]
+        res = step(states, key, [jnp.asarray(x) for x in xs])
+        states = [st for _, _, st in res]
+        out += [(n, r, x, key, pay, dec, st)
+                for n, x, (pay, dec, st) in zip(sizes, xs, res)]
+    return sorted(out, key=lambda o: (sizes.index(o[0]), o[1]))
+
+
 def _ieee_normal(key, shape):
     return ieee_jit(lambda k: jax.random.normal(k, shape, jnp.float32))(key)
 

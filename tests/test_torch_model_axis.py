@@ -354,10 +354,13 @@ def test_cli_model_parallel_equals_engine(runs):
 
 
 def test_model_axis_guards():
-    """Hier and gossip on a model axis raise naming
-    ``repro.models.sharding``; on the star a stage whose state is not
-    shaped like its leaf (DGC warm-up's round counter) raises naming
-    ``repro.core.aggregation``, while DGC without warm-up builds."""
+    """Hier and gossip build on a model axis, their pipeline rows the
+    rank's blocks; a stage whose state is not shaped like its leaf (DGC
+    warm-up's round counter) builds on the star's model axis with the
+    reference's replicated layout, every model rank holding its own
+    counter beside its blocks of ``u`` and ``v``; pod-level clients and
+    FSDP's data-axis dims still raise naming ``repro.models.sharding``."""
+    import dataclasses
     model = Model(get_arch("paper_lm"))
 
     def mesh(shape):
@@ -365,15 +368,24 @@ def test_model_axis_guards():
                       backend="gloo", groups={})
     pods = mesh({"pod": 2, "data": 1, "model": 2})
     data = mesh({"data": 2, "model": 2})
+    ef = FLConfig(uplink_compressor="topk:0.05>>qsgd:8")
     for topo, m in ((ET.Topology.hier(2), pods), (ET.Topology.gossip(), data)):
+        eng = ET.make_round_engine(model, ef, topo, mesh=m)
+        st = eng.state_from_params(model.init(0, "cpu"))
+        lead = (1, 1) if topo.kind == "hier" else (1,)
+        assert tuple(st.comm_state[0]["residual"].shape) == lead + (128, 128)
+    dgc = dict(uplink_compressor="topk", dgc_momentum=0.9)
+    for kw in (dgc, dict(dgc, dgc_warmup_rounds=2)):
+        eng = ET.make_round_engine(model, FLConfig(**kw), ET.Topology.star(),
+                                   mesh=data)
+        st = eng.state_from_params(model.init(0, "cpu"))
+        assert tuple(st.comm_state[0]["u"].shape) == (1, 128, 128)  # embed
+        assert ("round" in st.comm_state[0]) == ("dgc_warmup_rounds" in kw)
+    assert tuple(st.comm_state[0]["round"].shape) == (1,)
+    fsdp = Model(dataclasses.replace(get_arch("paper_lm"), fsdp=True))
+    for mdl, topo, m in ((model, ET.Topology.star("pod"),
+                          mesh({"pod": 2, "data": 2, "model": 1})),
+                         (fsdp, ET.Topology.star(), data)):
         with pytest.raises(NotImplementedError,
                            match="repro.models.sharding"):
-            ET.make_round_engine(model, FLConfig(), topo, mesh=m)
-    dgc = dict(uplink_compressor="topk", dgc_momentum=0.9)
-    with pytest.raises(NotImplementedError, match="repro.core.aggregation"):
-        ET.make_round_engine(model, FLConfig(**dgc, dgc_warmup_rounds=2),
-                             ET.Topology.star(), mesh=data)
-    eng = ET.make_round_engine(model, FLConfig(**dgc), ET.Topology.star(),
-                               mesh=data)
-    st = eng.state_from_params(model.init(0, "cpu"))
-    assert tuple(st.comm_state[0]["u"].shape) == (1, 128, 128)   # embed
+            ET.make_round_engine(mdl, FLConfig(), topo, mesh=m)

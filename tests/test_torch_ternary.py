@@ -36,6 +36,7 @@ from repro_torch.core import engine as ET
 from repro_torch.core.types import FLConfig
 from repro_torch.kernels import bitpack, ops, ternary
 from test_torch_jaxkeys import JaxKey, ieee_jit, one_torch_thread  # noqa: F401
+from test_torch_jaxkeys import reference_rounds
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -185,23 +186,18 @@ def _close(a, b, tol, what):
 @functools.lru_cache(maxsize=None)
 def _reference_run(name):
     """The reference's rounds for one case, once for both port backends,
-    run op by op (``jax.disable_jit``, as test_torch_compress.py runs its
-    stages)."""
+    every size in one :func:`ieee_jit` program (as test_torch_compress.py
+    runs its stages)."""
     c = next(c for c in CASES if c["name"] == name)
     ref = build(c, "jax")
-    out = []
-    for n in c["sizes"]:
-        st = ref.init((n,))
-        for r in range(c["rounds"]):
-            x = (np.random.default_rng(1000 * r + n).standard_normal(n)
-                 * 2.0).astype(np.float32)
-            key = jax.random.fold_in(jax.random.PRNGKey(7), r)
-            with jax.disable_jit():
-                pay, st = ref.encode(st, key, jnp.asarray(x))
-                dec = ref.decode(pay, n)
-            out.append((n, r, x, key, jax.tree.leaves(pay),
-                        np.asarray(dec), jax.tree.leaves(st)))
-    return ref, c, out
+    return ref, c, [
+        (n, r, x, key, jax.tree.leaves(pay), np.asarray(dec),
+         jax.tree.leaves(st))
+        for n, r, x, key, pay, dec, st in reference_rounds(
+            ref, c["sizes"], c["rounds"],
+            lambda n, r: (np.random.default_rng(1000 * r + n)
+                          .standard_normal(n) * 2.0).astype(np.float32),
+            lambda r: jax.random.fold_in(jax.random.PRNGKey(7), r))]
 
 
 @pytest.mark.parametrize("backend", ["jax", "kernel"])

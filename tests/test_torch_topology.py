@@ -370,10 +370,12 @@ def test_telemetry_on_equals_off(runs):
 def test_guards_and_not_ported_messages():
     """The reference's hier and gossip guards (population, scenario,
     SCAFFOLD, DGC), a mesh-less mesh topology, and the knobs the port does
-    not run: pod-level clients, --hierarchical on a model axis.  A
-    population on the star
-    builds (its guards and rounds are in
-    test_torch_mesh_population.py)."""
+    not run: pod-level clients and FSDP's data-axis dims.  A population on
+    the star builds (its guards and rounds are in
+    test_torch_mesh_population.py), and so does hier on a model axis (its
+    rounds are in test_torch_mesh_model_axis.py)."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.population import ClientPopulation
     from repro_torch.launch import mesh as M
@@ -409,10 +411,16 @@ def test_guards_and_not_ported_messages():
     with pytest.raises(NotImplementedError, match="repro.models.sharding"):
         ET.make_round_engine(model, FLConfig(), ET.Topology.star("pod"),
                              mesh=pods)
-    from repro_torch.launch import train
+    model2 = M.Mesh(shape={"pod": 2, "data": 2, "model": 2}, rank=0,
+                    device=torch.device("cpu"), backend="gloo", groups={})
+    hier = ET.make_round_engine(model, FLConfig(), ET.Topology.hier(2),
+                                mesh=model2)
+    assert hier.aux == {"n_pods": 2, "clients_per_pod": 2}
+    fsdp = Model(dataclasses.replace(get_arch("paper_lm"), fsdp=True))
     with pytest.raises(NotImplementedError, match="repro.models.sharding"):
-        train.main(["--nproc", "2", "--device", "cpu", "--dist-backend",
-                    "gloo", "--hierarchical", "--model-parallel", "2"])
+        ET.make_round_engine(fsdp, FLConfig(), ET.Topology.hier(2),
+                             mesh=model2)
+    from repro_torch.launch import train
     with pytest.raises(ValueError, match="give --nproc"):
         train.main(["--hierarchical", "--device", "cpu"])
 

@@ -52,8 +52,8 @@ GOSSIP = (("gossip_ring", "ring", dict(uplink_compressor="qsgd:8")),
 # the port's runs beside those: masked twins (secagg) and telemetry on
 # the train CLI's runs: paper_lm at full width, 2 rounds each
 CLI = ["--nproc", "4", "--device", "cpu", "--dist-backend", "gloo",
-       "--rounds", "2", "--seq", "4", "--batch-per-client", "1",
-       "--local-steps", "1"]
+       "--model-parallel", "1", "--rounds", "2", "--seq", "4",
+       "--batch-per-client", "1", "--local-steps", "1"]
 CLI_RUNS = (("star", ["--compressor", "topk:0.05>>qsgd:8"]),
             ("hier", ["--hierarchical", "--sync-every", "2", "--compressor",
                       "qsgd:8"]))
@@ -162,6 +162,17 @@ class NumpyKey:
     @staticmethod
     def seed(seed):
         return NumpyKey((seed >> 32, seed & 0xFFFFFFFF))
+
+    def plane(self, device=None):
+        """The key as a collective moves it: its two uint32 words, as an
+        int32 (2,) tensor (8 bytes, the reference's ``u32[2]``)."""
+        import torch
+        t = torch.from_numpy(np.array(self.k, np.uint32).view(np.int32))
+        return t if device is None else t.to(device)
+
+    @classmethod
+    def from_plane(cls, plane):
+        return cls(plane.cpu().numpy().astype(np.int32).view(np.uint32))
 
     def split(self, n):
         a, b = threefry2x32(*self.k, np.zeros(n, np.uint32),
